@@ -1,0 +1,8 @@
+"""Llama-3.2-3B [hf:meta-llama/Llama-3.2-3B]: small llama3, GQA, tied embed."""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-3b", family="dense",
+    n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8, d_ff=8192, vocab=128256,
+    head_dim=128, rope_theta=500000.0, tie_embeddings=True,
+)

@@ -1,0 +1,138 @@
+"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+
+``paged_attention`` is the model decode path's entry (``models/layers.py``).
+For tensors on the card it launches the hand-written Hopper kernel in
+``csrc/paged_attention.cu`` or raises; for tensors on the CPU it runs
+``paged_attention_ref``, the plain PyTorch version.  Nothing else selects the
+path, and no failure falls back to the plain version.
+
+Layouts are the JAX package's: q (B, Hkv, rep, hd); arenas (N, block, Hkv,
+hd); block_tables (B, P) int32 with -1 for an unallocated entry; lengths (B,)
+int32 valid tokens per request.  The output has q's dtype.
+
+The two versions round at different places, as the TPU kernel and its jnp
+reference do.  The kernel follows the Pallas kernel: q scaled in f32, P.V in
+f32.  The plain version follows the reference: q scaled in q's dtype and the
+probabilities cast to q's dtype before P.V (the model's ``_sdpa``
+discipline).  In f32 the two agree to 1e-5; in bf16 they differ by about one
+bf16 rounding of the probabilities and of q * scale, which
+``atol = rtol = 2e-2`` covers.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# what the kernel is built for: (q, arena) dtypes, and the GQA group sizes
+# (Hq / Hkv) of the repository's archs
+_KERNEL_DTYPES = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                  (torch.float32, torch.bfloat16)}
+_KERNEL_REPS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+launches = 0          # kernel launches; ``chip_smoke.py`` resets and reads it
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch paged decode attention.
+
+    Follows the JAX reference (``kernels/ref.py::paged_attention``): gather
+    the pages through the clamped table, f32 scores of ``q * scale`` (scaled
+    in q's dtype), f32 softmax, probabilities cast to q's dtype for P.V.
+    Key positions at or past the length are masked; so are positions on a
+    dead (-1) table entry, and a row with no live key returns 0 -- the TPU
+    kernel's semantics, which the reference leaves to the kernel.  Wherever
+    every page below the length is live (every row the decode path reads),
+    the result is the reference's."""
+    b, hkv, rep, hd = q.shape
+    blk = k_pages.shape[1]
+    p = block_tables.shape[1]
+    idx = block_tables.long().clamp(min=0)
+    k = k_pages[idx].reshape(b, p * blk, hkv, hd)
+    v = v_pages[idx].reshape(b, p * blk, hkv, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", (q * scale).float(), k.float())
+    kpos = torch.arange(p * blk, device=q.device)
+    live = (block_tables >= 0).repeat_interleave(blk, dim=1)      # (B, K)
+    mask = (kpos[None, :] < lengths.long()[:, None]) & live
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrk,bkgd->bgrd", probs, v.to(q.dtype))
+    return torch.where(mask.any(dim=1)[:, None, None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"need q (B, Hkv, rep, hd) and equal (N, block, Hkv, hd) "
+                         f"arenas; got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)}")
+    b, hkv, _, hd = q.shape
+    if (k_pages.shape[2], k_pages.shape[3]) != (hkv, hd):
+        raise ValueError(f"arena (N, block, Hkv, hd) {tuple(k_pages.shape)} does not "
+                         f"match q's Hkv={hkv}, hd={hd}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or \
+            tuple(lengths.shape) != (b,):
+        raise ValueError(f"need block_tables (B, P) and lengths (B,) for B={b}; got "
+                         f"{tuple(block_tables.shape)}, {tuple(lengths.shape)}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"block_tables and lengths must be int32; got "
+                        f"{block_tables.dtype}, {lengths.dtype}")
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE or \
+            v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"q and the arenas must be bfloat16 or float32 (arenas "
+                        f"alike); got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                    block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Paged decode attention: the CUDA kernel for tensors on the card, the
+    plain version for tensors on the CPU."""
+    global launches
+    _check(q, k_pages, v_pages, block_tables, lengths)
+    tensors = (q, k_pages, v_pages, block_tables, lengths)
+    if all(t.device.type == "cpu" for t in tensors):
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"paged_attention takes tensors all on the CPU or all on one "
+                         f"CUDA device; got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the paged_attention kernel takes contiguous tensors only")
+    b, hkv, rep, hd = q.shape
+    n_blocks, blk = k_pages.shape[0], k_pages.shape[1]
+    esz = k_pages.element_size()
+    smem = -(-4 * (rep * hd + rep * blk + 3 * rep) // 16) * 16 + 4 * blk * hd * esz
+    if (q.dtype, k_pages.dtype) not in _KERNEL_DTYPES or rep not in _KERNEL_REPS or \
+            hd > 256 or (hd * esz) % 16 or smem > 227 * 1024:
+        raise ValueError(f"the kernel takes (q, arena) dtypes in bf16/bf16, f32/f32, "
+                         f"f32/bf16, rep in {_KERNEL_REPS}, hd <= 256 with 16-byte K/V "
+                         f"rows, and at most 227 KB of shared memory; got {q.dtype}/"
+                         f"{k_pages.dtype}, rep={rep}, hd={hd}, block={blk} ({smem} B)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the kernel takes 16-byte aligned K/V arenas")
+    out = torch.empty_like(q)
+    lib = _build.load("paged_attention")
+    fn = lib.repro_paged_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], q.data_ptr(),
+             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, hkv, rep, hd, n_blocks, blk,
+             block_tables.shape[1], 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()} ({err})")
+    launches += 1
+    return out

@@ -1,0 +1,307 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, MLPs, embedding.
+
+Pure functions over dict params, mirroring the JAX package's
+``models/layers.py`` function by function:
+
+  * weight matrices keep the JAX layout ``(d_in, d_out)`` (``x @ w``);
+  * activations run in ``cfg.dtype``; norm statistics, softmax and logits in
+    f32.  The JAX model keeps f32 master weights and casts them to
+    ``cfg.dtype`` inside every ``dense``; the port stores matrices in
+    ``cfg.dtype`` to begin with, which gives the same numbers without the
+    per-call cast.  Norm scales stay f32, as the JAX model reads them.
+  * paged cache: ``cache`` is a (K, V) pair of page arenas ``(n_blocks,
+    block, Hkv, hd)`` written in place, where JAX donates and rewrites them.
+
+The end-aligned cache branch, sharding constraints, the manual
+sequence-sharded attention and the FooPar tensor-parallel MLP are not ported
+yet (ROADMAP, port queue).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig, torch_dtype
+from repro_torch.kernels.paged_attention import paged_attention
+
+Params = dict
+NEG_INF = -1e30
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+            * std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, cfg: ModelConfig,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal(gen, (d_in, d_out), scale, _dtype(cfg))
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = _dtype(cfg)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 product of two same-dtype operands with f32 accumulation (JAX's
+    ``preferred_element_type=f32``).  bf16 on the card goes through
+    ``torch.mm(out_dtype=)`` so the large operand is never widened; on the
+    CPU the operands are widened, which is exact."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type == "cuda":
+        return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                        out_dtype=torch.float32).reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def norm_init(d: int, cfg: ModelConfig, device) -> Params:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + cfg.norm_eps)
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    out = xf * p["scale"].float()
+    if "bias" in p:
+        out = out + p["bias"].float()
+    return out.to(_dtype(cfg))
+
+
+# ---------------------------------------------------------------------------
+# RoPE (standard + fractional "2d" chatglm variant)
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) or (B, S) absolute positions."""
+    hd = x.shape[-1]
+    rot = int(hd * cfg.rope_fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = cfg.rope_theta ** exps                              # f32, as in JAX
+    ang = positions.float()[..., None] * freqs                  # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    x_rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([x_rot.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": dense_init(gen, d, hq * hd, cfg),
+        "wk": dense_init(gen, d, hkv * hd, cfg),
+        "wv": dense_init(gen, d, hkv * hd, cfg),
+        "wo": dense_init(gen, hq * hd, d, cfg),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32, device=gen.device)}
+        p["k_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32, device=gen.device)}
+    return p
+
+
+def _qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.float()).to(x.dtype)
+
+
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset,
+          kv_len_valid=None) -> torch.Tensor:
+    """Grouped SDPA.  q: (B, Lq, Hkv, rep, hd); k, v: (B, Lk, Hkv, hd).
+    ``q_offset``: absolute position of q[0] minus the first key position --
+    an int, a 0-d tensor, or (B,) for per-row positions.  ``kv_len_valid``:
+    number of valid key slots, scalar or (B,).  Scores and softmax in f32;
+    the probabilities are cast to q's dtype for P.V (the JAX discipline,
+    which ``scaled_dot_product_attention`` does not share)."""
+    b, lq, hkv, rep, hd = q.shape
+    lk = k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", (q * scale).float(), k.float())
+    per_row = torch.is_tensor(q_offset) and q_offset.dim() == 1
+    # (Lq,) for a scalar offset, (B, Lq) for per-row offsets; a Python int
+    # stays on the host (no copy, no sync)
+    qpos = torch.arange(lq, device=dev) + (q_offset[:, None] if per_row else q_offset)
+    kpos = torch.arange(lk, device=dev)
+    mask = torch.ones(qpos.shape + (lk,), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos[..., None]
+    if window is not None:
+        mask &= qpos[..., None] - kpos < window
+    if kv_len_valid is not None:
+        if torch.is_tensor(kv_len_valid) and kv_len_valid.dim() == 1:
+            kv_len_valid = kv_len_valid[:, None, None]
+        mask = mask & (kpos < kv_len_valid)
+    if mask.dim() == 3:                       # per-row mask: (B, 1, 1, Lq, Lk)
+        mask = mask[:, None, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(q.dtype))
+
+
+def _write_pages(arena: torch.Tensor, entry: torch.Tensor, off: torch.Tensor,
+                 rows: torch.Tensor) -> None:
+    """``arena[entry[i], off[i]] = rows[i]`` for every i with ``entry[i] >= 0``;
+    the rest are dropped (JAX's ``mode="drop"`` scatter through the
+    out-of-range block).  PyTorch raises or faults on an out-of-range index,
+    so dead rows are removed first, never clamped: a clamped write would
+    land on a live page."""
+    live = torch.nonzero(entry >= 0).squeeze(1)
+    arena[entry[live].long(), off[live].long()] = rows[live].to(arena.dtype)
+
+
+def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
+              causal: bool = True,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos=None,
+              block_tables: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Self-attention.
+
+    No cache: full (causal) attention over x.
+    Paged decode/prefill (``cache`` and ``block_tables`` given): ``cache`` is
+    the (K, V) pair of page arenas ``(n_blocks, block, Hkv, hd)``; each
+    request writes and reads through its block-table row.  Decode is a (B,)
+    tensor ``cache_pos`` (one token per row, read by the paged-attention
+    kernel); chunked prefill is a scalar ``cache_pos`` (one request, B=1,
+    attending causally over the gathered page view).
+    """
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = hq // hkv
+
+    q = dense(x, p["wq"], cfg).reshape(b, s, hkv, rep, hd)
+    k = dense(x, p["wk"], cfg).reshape(b, s, hkv, hd)
+    v = dense(x, p["wv"], cfg).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    q = rope(q.reshape(b, s, hq, hd), positions, cfg).reshape(b, s, hkv, rep, hd)
+    k = rope(k, positions, cfg)
+
+    new_cache = None
+    if cache is not None:
+        if block_tables is None:
+            raise NotImplementedError(
+                "the end-aligned KV cache is not ported yet (ROADMAP, port "
+                "queue: the end-aligned engine); pass block_tables for the paged cache")
+        if cfg.window is not None:
+            raise NotImplementedError("paged attention needs full (no-SWA) attention")
+        ck, cv = cache
+        n_pages = block_tables.shape[1]
+        blk = ck.shape[1]
+        if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+            # decode: row i writes its token at page pos//block, offset
+            # pos%block of its own chain; a position past the table width or
+            # a -1 entry (parked / prefilling slot) drops the write
+            pg, off = cache_pos // blk, cache_pos % blk
+            inside = pg < n_pages
+            entry = torch.gather(block_tables, 1,
+                                 pg.clamp(max=n_pages - 1)[:, None].long())[:, 0]
+            entry = torch.where(inside, entry, -1)
+            _write_pages(ck, entry, off, k[:, 0])
+            _write_pages(cv, entry, off, v[:, 0])
+            out = paged_attention(q[:, 0].contiguous(), ck, cv,
+                                  block_tables.to(torch.int32).contiguous(),
+                                  (cache_pos + 1).to(torch.int32))[:, None]
+        else:
+            # chunked prefill (B=1): the chunk's tokens land at positions
+            # cache_pos..cache_pos+s-1 through the table, then attend
+            # causally over the gathered page view.  Right-pad tokens whose
+            # page lies past the table width must drop (a clamped index
+            # would scatter pad K/V over the last live page); pad writes
+            # inside the table are re-written by real tokens before any
+            # query reads them, and pad queries' outputs are never used.
+            if b != 1:
+                raise ValueError(f"chunked prefill runs one request per call, got B={b}")
+            tpos = cache_pos + torch.arange(s, device=x.device)
+            pg, off = tpos // blk, tpos % blk
+            entry = torch.where(pg < n_pages, block_tables[0, pg.clamp(max=n_pages - 1)],
+                                -1)
+            _write_pages(ck, entry, off, k[0])
+            _write_pages(cv, entry, off, v[0])
+            idx = block_tables.long().clamp(min=0)
+            out = _sdpa(q, ck[idx].reshape(b, -1, hkv, hd), cv[idx].reshape(b, -1, hkv, hd),
+                        causal=True, window=None, q_offset=cache_pos)
+        new_cache = (ck, cv)
+    else:
+        out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
+
+    out = out.reshape(b, s, hq * hd)
+    return dense(out, p["wo"], cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"w_gate": dense_init(gen, d, ff, cfg),
+                "w_up": dense_init(gen, d, ff, cfg),
+                "w_down": dense_init(gen, ff, d, cfg)}
+    return {"w_up": dense_init(gen, d, ff, cfg),
+            "w_down": dense_init(gen, ff, d, cfg)}
+
+
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "w_gate" in p:
+        g = dense(x, p["w_gate"], cfg)
+        u = dense(x, p["w_up"], cfg)
+        h = F.silu(g.float()).to(u.dtype) * u
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(dense(x, p["w_up"], cfg).float(), approximate="tanh").to(_dtype(cfg))
+    return dense(h, p["w_down"], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    p = {"embedding": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, _dtype(cfg))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg)
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    flat = p["embedding"].index_select(0, tokens.reshape(-1))
+    return flat.reshape(*tokens.shape, -1).to(_dtype(cfg))
+
+
+def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = _dtype(cfg)
+    w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
+    out = _matmul_f32(x.to(dt), w.to(dt))
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        out = c * torch.tanh(out / c)
+    return out  # f32

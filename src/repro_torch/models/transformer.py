@@ -1,0 +1,132 @@
+"""Decoder-only LM assembly for the ``"attn"`` block kind (dense models).
+
+Mirrors the JAX package's ``models/transformer.py``.  JAX stacks the layer
+parameters over periods and scans them; here ``params["layers"]`` is a
+plain list with one dict per layer and the scan is a Python loop.  The paged
+cache is a list with one (K, V) pair of page arenas per layer, updated in
+place.
+
+  * ``forward``: full-sequence logits, no cache (the tests' and
+    ``chip_smoke.py``'s oracle for the decode path);
+  * ``init_paged_cache`` / ``prefill_paged`` / ``decode_step(block_tables=)``:
+    the paged serving engine's model calls.
+
+MoE, SSM and xLSTM blocks, the end-aligned cache and fused prefill are
+not ported yet (ROADMAP, port queue).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+
+Params = dict
+Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    if any(k != "attn" for k in cfg.block_pattern) or cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense 'attn' block kind is ported; pattern "
+            f"{cfg.block_pattern} (ROADMAP, port queue: other model families)")
+
+
+def _block_apply(p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
+                 cache, cache_pos, block_tables):
+    x1 = L.apply_norm(p["ln1"], h, cfg)
+    attn_out, new_cache = L.attention(p["attn"], x1, positions, cfg, cache=cache,
+                                      cache_pos=cache_pos, block_tables=block_tables)
+    if cfg.parallel_block:                 # command-r style: attn ∥ mlp
+        return h + attn_out + L.mlp(p["mlp"], x1, cfg), new_cache
+    h = h + attn_out
+    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg), new_cache
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random parameters on ``generator``'s device: matrices in
+    ``cfg.dtype`` drawn as the JAX init draws them (normal, std 1/sqrt(d_in);
+    embedding std 0.02), norm scales f32 ones.  The numbers differ from the
+    JAX init's; tests carry JAX parameters over with ``convert``."""
+    _check_kinds(cfg)
+    dev = generator.device
+    return {
+        "embed": L.embed_init(generator, cfg),
+        "layers": [{"ln1": L.norm_init(cfg.d_model, cfg, dev),
+                    "attn": L.attention_init(generator, cfg),
+                    "ln2": L.norm_init(cfg.d_model, cfg, dev),
+                    "mlp": L.mlp_init(generator, cfg)}
+                   for _ in range(cfg.n_layers)],
+        "final_norm": L.norm_init(cfg.d_model, cfg, dev),
+    }
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) f32, causal, no cache."""
+    h = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for p in params["layers"]:
+        h, _ = _block_apply(p, h, positions, cfg, None, None, None)
+    h = L.apply_norm(params["final_norm"], h, cfg)
+    return L.logits(params["embed"], h, cfg)
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """True when the paged KV-cache engine can serve this config: pure
+    dense attention blocks with full (no sliding-window) attention."""
+    return (not cfg.enc_dec and cfg.window is None
+            and all(k == "attn" for k in cfg.block_pattern))
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block: int, *,
+                     device="cuda", dtype: torch.dtype = torch.bfloat16) -> Cache:
+    """One (K, V) pair of ``(n_blocks, block, kv_heads, hd)`` page arenas per
+    layer, zero-filled.  K/V are stored in bf16 whatever the model dtype, as
+    in the JAX package."""
+    if not supports_paged(cfg):
+        raise NotImplementedError(
+            f"paged KV cache needs a pure-attention, no-SWA pattern; got "
+            f"{cfg.block_pattern} (window={cfg.window})")
+    shp = (n_blocks, block, cfg.n_kv_heads, cfg.hd)
+    return [(torch.zeros(shp, dtype=dtype, device=device),
+             torch.zeros(shp, dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
+def prefill_paged(params: Params, tokens: torch.Tensor, cache: Cache,
+                  cfg: ModelConfig, *, pos0: int, block_tables: torch.Tensor,
+                  length: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """One chunked-prefill slice: tokens (1, C) land at absolute positions
+    ``pos0..pos0+C-1`` of one request's paged sequence (pages named by
+    ``block_tables`` (1, P)), writing K/V into the arenas and attending
+    causally over everything written so far.  ``length``: true token count
+    of a right-padded final chunk.  Returns (logits at the chunk's last real
+    token (1, V) f32, cache)."""
+    b, s = tokens.shape
+    h = L.embed(params["embed"], tokens, cfg)
+    positions = pos0 + torch.arange(s, device=tokens.device)
+    for i, p in enumerate(params["layers"]):
+        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], pos0, block_tables)
+    h = L.apply_norm(params["final_norm"], h, cfg)
+    last = (length if length is not None else s) - 1
+    return L.logits(params["embed"], h[:, last:last + 1], cfg)[:, 0], cache
+
+
+def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Tensor,
+                cfg: ModelConfig, *, block_tables: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  token (B,) int; pos (B,) per-row absolute
+    positions; ``block_tables`` (B, P): the paged cache, each row addressing
+    its own page chain.  Returns (logits (B, V) f32, cache)."""
+    if block_tables is None:
+        raise NotImplementedError(
+            "decode_step without block_tables needs the end-aligned cache, which "
+            "is not ported yet (ROADMAP, port queue: the end-aligned engine)")
+    h = L.embed(params["embed"], token[:, None], cfg)          # (B, 1, d)
+    positions = pos[:, None]
+    for i, p in enumerate(params["layers"]):
+        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], pos, block_tables)
+    h = L.apply_norm(params["final_norm"], h, cfg)
+    return L.logits(params["embed"], h, cfg)[:, 0], cache
