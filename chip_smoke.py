@@ -3,16 +3,22 @@
 
   python3 chip_smoke.py
 
-Phases, each printing one line and each failing the run on error:
+Phases, each printing its lines and seconds and each failing the run on
+error:
 
   1. device   -- the card's name and power limit, torch and CUDA versions;
                  stops when there is no CUDA device;
   2. build    -- builds every kernel from ``src/repro_torch/kernels/csrc``;
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the serving path's shapes (paged attention: B=4 slots,
-                 Hkv=8, rep=3, hd=128, block 16), in bf16 and f32, with a
-                 dead row, -1 entries and partial pages; times the kernel,
-                 the plain version and one library call, beside the bound;
+                 timed beside the plain version, one library call and its
+                 bound:
+                 paged attention at the serving path's shapes (B=4 slots,
+                 Hkv=8, rep=3, hd=128, block 16) in bf16 and f32, with a dead
+                 row, -1 entries and partial pages;
+                 matmul at 4096^3 in f32 and f16; matmul_acc at the SUMMA 2x4
+                 and pipelined 1x8 block shapes of n = 8192 (in place, no
+                 (m, n) temporary); minplus at 4096^3 with integer weights
+                 and +inf entries (exactly equal);
   4. serve    -- full-width Llama-3.2-3B in bf16, random weights from a
                  seeded generator, through ``Scheduler(paged=True)``: 8
                  requests of 512 prompt and 64 generated tokens, 4 slots,
@@ -24,13 +30,27 @@ Phases, each printing one line and each failing the run on error:
   6. trace    -- a shorter serve run (4 requests, 16 generated tokens)
                  under ``torch.profiler``: device busy time against wall
                  time, split into the paged-attention kernel, matrix
-                 products and everything else.
+                 products and everything else;
+  7. matmul ranks -- the paper's distributed matmuls at n = 8192 in f32 on 8
+                 gloo rank processes sharing ``cuda:0``: DNS on 2x2x2, SUMMA
+                 and Cannon on 2x4, pipelined SUMMA on 1x8 and 2.5D Cannon on
+                 2x2x2 through their ``*_kernel`` entry points, and
+                 ``generic_matmul`` on 8; each against ``torch.matmul`` of the
+                 whole matrices, the kernels' launch counts against the
+                 algorithm's, and per algorithm its wall time, the device
+                 time of its kernel launches and the bytes it staged through
+                 the host;
+  8. fw ranks -- blocked Floyd-Warshall at n = 8192 on 2x2 ranks with the
+                 minplus kernel (24 launches), equal to the plain-version run
+                 and to the single-device oracle; the faithful Algorithm 3
+                 at n = 2048 (2n staged broadcasts).
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -42,7 +62,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 L2_FLUSH_BYTES = 100 * 2**20                 # twice the H100's 50 MB L2
 # kernel vs plain: f32 differs only in summation order; bf16 adds one bf16
 # rounding of the probabilities and of q * scale in the plain version
@@ -340,13 +360,378 @@ def phase_trace(cfg, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the tile kernels of the distributed path (matmul, matmul_acc, minplus)
+TILE_TOL = {torch.float32: (1e-4, 1e-3), torch.float16: (2e-2, 2e-1)}   # rtol, atol
+MINPLUS_OPS_S = PEAK_OPS_S[torch.float32] / 2   # an add or a min is one op, an FMA two
+
+
+def _copies(make, nbytes: int) -> list:
+    """Enough copies of a case (at least one) that together they exceed the
+    L2 flush size, so each timed call finds its inputs cold."""
+    return [make() for _ in range(max(1, -(-L2_FLUSH_BYTES // nbytes)))]
+
+
+def _bound(nbytes: float, ops: float, ops_s: float):
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, ops / ops_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
+        bytes_ms, ops_ms
+
+
+def phase_tile_kernels() -> dict:
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import minplus as kmp
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rec = {}
+    t0 = time.perf_counter()
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # matmul at 4096^3, f32 and f16 in, f32 out
+    n = 4096
+    for dtype in (torch.float32, torch.float16):
+        a, b = rnd(n, n, dtype=dtype), rnd(n, n, dtype=dtype)
+        got, want = km.matmul(a, b), km.matmul_ref(a, b)
+        torch.cuda.synchronize()
+        rtol, atol = TILE_TOL[dtype]
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"matmul {dtype}: max |kernel - plain| = {err:.3e} beyond rtol {rtol:g}, "
+                 f"atol {atol:g}")
+        esz = a.element_size()
+        nbytes = 2 * n * n * esz + n * n * 4
+        cases = _copies(lambda: (a.clone(), b.clone()), 2 * n * n * esz)
+        ms = device_ms([lambda c=c: km.matmul(*c) for c in cases])
+        plain_ms = device_ms([lambda c=c: km.matmul_ref(*c) for c in cases])
+        library_ms = device_ms([lambda c=c: torch.matmul(*c) for c in cases])
+        del cases
+        bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * n ** 3, PEAK_OPS_S[dtype])
+        rec[("matmul", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"[kernels] matmul {str(dtype)[6:]} {n}^3: max|kernel-plain| {err:.3e} "
+              f"(rtol {rtol:g}, atol {atol:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"torch.matmul {library_ms:.3f} ms{' (f16 out, tensor cores)' if esz == 2 else ''}; "
+              f"bound {bound_ms:.3f} ms = max(2*{n}^3 = {2 * n ** 3 / 1e9:.1f} GFLOP / "
+              f"{PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = {ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / "
+              f"{PEAK_BYTES_S / 1e12:g} TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+
+    # matmul_acc at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
+    for m, k, nn in ((4096, 2048, 2048), (8192, 1024, 1024)):
+        a, b, c = rnd(m, k), rnd(k, nn), rnd(m, nn)
+        want = km.matmul_acc_ref(a, b, c.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = km.matmul_acc(a, b, c)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        if got.data_ptr() != c.data_ptr():
+            fail(f"matmul_acc ({m}, {k}, {nn}): the result is not c's storage")
+        if grew >= m * nn * 4:
+            fail(f"matmul_acc ({m}, {k}, {nn}): device memory grew {grew} B during the "
+                 f"call, an (m, n) temporary is {m * nn * 4} B")
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+            fail(f"matmul_acc ({m}, {k}, {nn}): max |kernel - plain| = {err:.3e} beyond "
+                 f"rtol 1e-4, atol 1e-3")
+        nbytes = (m * k + k * nn + 2 * m * nn) * 4
+        cases = _copies(lambda: (a.clone(), b.clone(), c.clone()), nbytes)
+        ms = device_ms([lambda c=c: km.matmul_acc(*c) for c in cases])
+        plain_ms = device_ms([lambda c=c: km.matmul_acc_ref(*c) for c in cases])
+        library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in cases])
+        del cases
+        bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * m * k * nn, PEAK_OPS_S[torch.float32])
+        rec[("matmul_acc", (m, k, nn))] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                               library_ms=library_ms, bound_ms=bound_ms,
+                                               bound_by=by)
+        print(f"[kernels] matmul_acc f32 ({m}x{k})x({k}x{nn}): in place (result at c's "
+              f"address, memory grew {grew} B < {m * nn * 4} B); max|kernel-plain| "
+              f"{err:.3e} (rtol 1e-4, atol 1e-3); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"c.addmm_ {library_ms:.3f} ms; bound {bound_ms:.3f} ms = max(2*{m}*{k}*{nn} = "
+              f"{2 * m * k * nn / 1e9:.2f} GFLOP / 67 TFLOP/s = {ops_ms:.3f} ms, "
+              f"{nbytes / 1e6:.0f} MB / 3.35 TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+
+    # minplus at 4096^3: integer weights, some +inf; exact
+    a = torch.randint(0, 100, (n, n), generator=g, device="cuda").float()
+    b = torch.randint(0, 100, (n, n), generator=g, device="cuda").float()
+    a[torch.rand((n, n), generator=g, device="cuda") < 0.1] = float("inf")
+    b[torch.rand((n, n), generator=g, device="cuda") < 0.1] = float("inf")
+    got, want = kmp.minplus(a, b), kmp.minplus_ref(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"minplus: kernel and plain version differ at "
+             f"{int((got != want).sum())} of {got.numel()} entries")
+    n_inf = int(torch.isinf(got).sum())
+    nbytes = 3 * n * n * 4
+    cases = _copies(lambda: (a.clone(), b.clone()), 2 * n * n * 4)
+    ms = device_ms([lambda c=c: kmp.minplus(*c) for c in cases])
+    plain_ms = device_ms([lambda c=c: kmp.minplus_ref(*c) for c in cases], replays=2)
+    del cases
+    bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * n ** 3, MINPLUS_OPS_S)
+    rec[("minplus", torch.float32)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                           library_ms=None, bound_ms=bound_ms, bound_by=by)
+    print(f"[kernels] minplus f32 {n}^3: kernel == plain exactly ({n_inf} +inf outputs); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library none (no single PyTorch "
+          f"call computes (min, +)); bound {bound_ms:.3f} ms = max({n}^3 = "
+          f"{n ** 3 / 1e9:.1f} G triples x 2 instructions (add, min) / 33.5 T/s "
+          f"(67 TFLOP/s counts an FMA as 2) = {ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / "
+          f"3.35 TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+    print(f"[kernels] tile kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the distributed path: rank processes on cuda:0
+N_RANKS_MM, N_MM, N_FW, N_FW_FAITHFUL = 8, 8192, 8192, 2048
+# normwise relative bound between two f32 products of n-term dot products:
+# each is within about sqrt(n) * 2^-24 of the exact product, so they are
+# within twice that of each other: 2 * sqrt(8192) * 2^-24 = 1.08e-5
+MM_REL_BOUND = 2 * N_MM ** 0.5 * 2.0 ** -24
+
+
+def _mm_runs(C):
+    """(name, entry point, mesh shape, axes, body, specs, kernel, launches)."""
+    from repro_torch.core import summa as S, summa_pipelined as SP
+    D = importlib.import_module("repro_torch.core.dns_matmul")   # the name is also a function
+    from repro_torch.core.mesh import P
+    from repro_torch.kernels import ops
+    xy, xyz = P("x", "y"), ("x", "y", "z")
+    return [
+        ("dns_matmul_kernel", C.dns_matmul_kernel, (2, 2, 2), xyz,
+         lambda a, b: D.dns_body(a, b, local_matmul=ops.matmul), D.DNS_SPECS[0],
+         "matmul", 8),
+        ("summa_matmul_kernel", C.summa_matmul_kernel, (2, 4), ("x", "y"),
+         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32),
+        ("cannon_matmul_kernel", C.cannon_matmul_kernel, (2, 4), ("x", "y"),
+         lambda a, b: S.cannon_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32),
+        ("summa_matmul_pipelined_kernel", C.summa_matmul_pipelined_kernel, (1, 8), ("x", "y"),
+         lambda a, b: SP.summa_pipelined_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
+         "matmul_acc", 64),
+        ("cannon_matmul_25d_kernel", C.cannon_matmul_25d_kernel, (2, 2, 2), xyz,
+         lambda a, b: SP.cannon_25d_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
+         "matmul_acc", 8),
+    ]
+
+
+def _kernel_ms(km) -> float:
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for _, s, e in km.events)
+
+
+def rank_matmul(device, n: int, seed: int) -> dict:
+    """One rank of the matmul phase: every algorithm through its entry point
+    (counted, checked), then its block-level body alone (timed)."""
+    import torch.distributed as dist
+    from repro_torch import core as C
+    from repro_torch.core.mesh import local_block
+    from repro_torch.kernels import matmul as km
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn((n, n), generator=g, device=device)
+    B = torch.randn((n, n), generator=g, device=device)
+    rank = dist.get_rank()
+    want = torch.matmul(A, B) if rank == 0 else None
+    out = {}
+    meshes = {}
+    for name, entry, shape, axes, body, specs, kernel, _ in _mm_runs(C):
+        mesh = meshes.get(shape) or meshes.setdefault(shape, C.ProcessMesh(shape, axes))
+        # the main path, counted
+        torch.cuda.synchronize()
+        dist.barrier()
+        km.launches = {"matmul": 0, "matmul_acc": 0}
+        t0 = time.perf_counter()
+        got = entry(A, B, mesh)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        launches = dict(km.launches)
+        rel = ((got - want).norm() / want.norm()).item() if rank == 0 else None
+        finite = bool(torch.isfinite(got).all())
+        del got
+        # the block-level body alone, timed
+        with mesh:
+            a, b = local_block(A, specs[0], mesh), local_block(B, specs[1], mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            mesh.staged_bytes = 0
+            km.events = []
+            t0 = time.perf_counter()
+            body(a, b)
+            torch.cuda.synchronize()
+            body_s = time.perf_counter() - t0
+            kernel_ms = _kernel_ms(km)
+            km.events = None
+        out[name] = dict(entry_s=entry_s, body_s=body_s, kernel_ms=kernel_ms,
+                         staged=mesh.staged_bytes, launches=launches, rel=rel,
+                         finite=finite)
+    mesh8 = C.ProcessMesh((8,), ("z",))
+    dist.barrier()
+    mesh8.staged_bytes = 0
+    t0 = time.perf_counter()
+    got = C.generic_matmul(A, B, mesh8, axis="z")
+    torch.cuda.synchronize()
+    out["generic_matmul"] = dict(
+        entry_s=time.perf_counter() - t0, body_s=None, kernel_ms=None,
+        staged=mesh8.staged_bytes, launches={},
+        rel=((got - want).norm() / want.norm()).item() if rank == 0 else None,
+        finite=bool(torch.isfinite(got).all()))
+    return out
+
+
+def _fw_weights(n: int, seed: int, device):
+    """Integer edge weights 1..99, an edge with probability 0.05 (+inf
+    otherwise), zero diagonal: every path sum is an integer below 2^24, so
+    any evaluation order gives the same f32 result."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(1, 100, (n, n), generator=g, device=device).float()
+    w[torch.rand((n, n), generator=g, device=device) >= 0.05] = float("inf")
+    w.fill_diagonal_(0.0)
+    return w
+
+
+def rank_fw(device, n: int, n_faithful: int, seed: int) -> dict:
+    """One rank of the Floyd-Warshall phase on a 2x2 grid."""
+    import torch.distributed as dist
+    from repro_torch import core as C
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import minplus as kmp
+    from repro_torch.kernels import ops
+    mesh = C.ProcessMesh((2, 2), ("x", "y"))
+    rank = dist.get_rank()
+    D = _fw_weights(n, seed, device)
+    out = {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    mesh.staged_bytes = 0
+    kmp.launches = 0
+    km.events = []
+    t0 = time.perf_counter()
+    got = C.blocked_floyd_warshall(D, mesh, minplus=ops.minplus)
+    torch.cuda.synchronize()
+    out["blocked_floyd_warshall"] = dict(entry_s=time.perf_counter() - t0,
+                                         kernel_ms=_kernel_ms(km), staged=mesh.staged_bytes,
+                                         launches={"minplus": kmp.launches})
+    km.events = None
+    t0 = time.perf_counter()
+    plain = C.blocked_floyd_warshall(D, mesh)
+    torch.cuda.synchronize()
+    out["blocked_plain_s"] = time.perf_counter() - t0
+    if rank == 0:
+        ref = C.floyd_warshall_reference(D)
+        out["blocked_equal_plain"] = bool(torch.equal(got, plain))
+        out["blocked_equal_ref"] = bool(torch.equal(got, ref))
+        out["n_inf"] = int(torch.isinf(ref).sum())
+    del got, plain
+    Df = _fw_weights(n_faithful, seed + 1, device)
+    dist.barrier()
+    mesh.staged_bytes = 0
+    t0 = time.perf_counter()
+    got = C.floyd_warshall(Df, mesh)
+    torch.cuda.synchronize()
+    out["floyd_warshall"] = dict(entry_s=time.perf_counter() - t0, kernel_ms=None,
+                                 staged=mesh.staged_bytes, launches={})
+    if rank == 0:
+        out["faithful_equal_ref"] = bool(torch.equal(got, C.floyd_warshall_reference(Df)))
+    return out
+
+
+def _check_compute_mode() -> None:
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.split("\n")[0]
+    if "exclusive" in mode.lower():
+        fail(f"the card is in compute mode {mode.strip()}: the rank phases put several "
+             f"processes on cuda:0, which that mode forbids")
+
+
+def _print_algo(name, per_rank, extra=""):
+    walls = [r["entry_s"] for r in per_rank]
+    bodies = [r.get("body_s") for r in per_rank]
+    kms = [r.get("kernel_ms") for r in per_rank]
+    staged = sum(r["staged"] for r in per_rank)
+    body = (f"; body alone {max(bodies):.3f} s" if bodies[0] is not None else "")
+    kern = (f"; kernel device time {sum(kms):.1f} ms summed over ranks" if kms[0] is not None
+            else "")
+    print(f"[ranks] {name}: wall {max(walls):.3f} s (entry point, slicing and assembly "
+          f"included){body}{kern}; staged through the host {staged / 2**20:.1f} MiB over "
+          f"{len(per_rank)} ranks ({staged / len(per_rank) / 2**20:.1f} MiB a rank){extra}",
+          flush=True)
+
+
+def phase_distributed() -> dict:
+    """Returns the launch counts of the main-path runs, summed over ranks."""
+    from repro_torch import core as C
+    from repro_torch.core.mesh import launch
+    _check_compute_mode()
+    counts = {"matmul": 0, "matmul_acc": 0, "minplus": 0}
+    t0 = time.perf_counter()
+    res = launch(N_RANKS_MM, rank_matmul, N_MM, 3, device="cuda", timeout=900)
+    for name, _, shape, _, _, _, kernel, want_launches in _mm_runs(C) + \
+            [("generic_matmul", None, (8,), None, None, None, None, 0)]:
+        per_rank = [r[name] for r in res]
+        rel = per_rank[0]["rel"]
+        got = {k: sum(r["launches"].get(k, 0) for r in per_rank)
+               for k in ("matmul", "matmul_acc")}
+        _print_algo(f"{name} {'x'.join(map(str, shape))}", per_rank,
+                    f"; |C - torch.matmul| / |torch.matmul| = {rel:.3e} (bound "
+                    f"{MM_REL_BOUND:.3e}); launches {got}")
+        if not all(r["finite"] for r in per_rank) or not rel <= MM_REL_BOUND:
+            fail(f"{name}: normwise relative error {rel:.3e} beyond {MM_REL_BOUND:.3e} "
+                 f"(or a non-finite entry)")
+        if kernel is not None:
+            other = "matmul_acc" if kernel == "matmul" else "matmul"
+            if got[kernel] != want_launches or got[other] != 0:
+                fail(f"{name}: launches {got}, want {kernel} x {want_launches}")
+            counts[kernel] += got[kernel]
+    print(f"[ranks] matmul phase: {N_RANKS_MM} ranks, n = {N_MM}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    res = launch(4, rank_fw, N_FW, N_FW_FAITHFUL, 5, device="cuda", timeout=900)
+    r0 = res[0]
+    blocked = [r["blocked_floyd_warshall"] for r in res]
+    n_mp = sum(r["launches"]["minplus"] for r in blocked)
+    _print_algo(f"blocked_floyd_warshall(minplus=ops.minplus) 2x2, n = {N_FW}", blocked,
+                f"; minplus launches {n_mp}; plain-version run {r0['blocked_plain_s']:.3f} s; "
+                f"equal to the plain run: {r0['blocked_equal_plain']}, to the single-device "
+                f"oracle: {r0['blocked_equal_ref']} ({r0['n_inf']} +inf)")
+    if n_mp != 24:
+        fail(f"blocked_floyd_warshall: minplus launches {n_mp}, want 4 ranks x 2 rounds x 3")
+    if not (r0["blocked_equal_plain"] and r0["blocked_equal_ref"]):
+        fail("blocked_floyd_warshall with the kernel differs from the plain-version run "
+             "or from the single-device oracle")
+    counts["minplus"] = n_mp
+    _print_algo(f"floyd_warshall 2x2, n = {N_FW_FAITHFUL} ({2 * N_FW_FAITHFUL} staged "
+                f"broadcasts)", [r["floyd_warshall"] for r in res],
+                f"; equal to the single-device oracle: {r0['faithful_equal_ref']}")
+    if not r0["faithful_equal_ref"]:
+        fail("floyd_warshall differs from the single-device oracle")
+    print(f"[ranks] Floyd-Warshall phase: 4 ranks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+def _timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _record(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.models import transformer as T
-    phase_build()
-    rec = phase_kernels()
+    _timed("build", phase_build)
+    rec = _timed("kernels: paged attention", phase_kernels)
+    tile = _timed("kernels: matmul, matmul_acc, minplus", phase_tile_kernels)
     cfg = configs.get(ARCH)
     t0 = time.perf_counter()
     params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -355,18 +740,23 @@ def main() -> None:
                    [w for lp in params["layers"] for d in lp.values() for w in d.values()])
     print(f"[init] {cfg.name}: {n_params / 1e9:.3f} B parameters (bf16 matrices) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    comp, launches = phase_serve(cfg, params)
-    phase_oracle(cfg, params, comp)
-    phase_trace(cfg, params)
-    bf = rec[torch.bfloat16]
-    kernels = [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:90",
-        "launches": launches, "max_abs_err": bf["max_abs_err"], "ms": bf["ms"],
-        "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
-        "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
-    }]
+    comp, launches = _timed("serve", phase_serve, cfg, params)
+    _timed("oracle", phase_oracle, cfg, params, comp)
+    _timed("trace", phase_trace, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    counts = _timed("ranks", phase_distributed)
+    csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
+    kernels = [
+        _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",
+                launches, rec[torch.bfloat16]),
+        _record("matmul", csrc + "matmul.cu", ref + "matmul.py:82", counts["matmul"],
+                tile[("matmul", torch.float32)]),
+        _record("matmul_acc", csrc + "matmul.cu", ref + "matmul.py:48", counts["matmul_acc"],
+                tile[("matmul_acc", (4096, 2048, 2048))]),
+        _record("minplus", csrc + "minplus.cu", ref + "minplus.py:44", counts["minplus"],
+                tile[("minplus", torch.float32)]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -1,4 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``paged_attention`` -- paged decode attention (``csrc/paged_attention.cu``).
+``matmul`` / ``matmul_acc`` -- tiled f32 block products (``csrc/matmul.cu``).
+``minplus`` -- the (min, +) product (``csrc/minplus.cu``).
+``ops`` re-exports them under the reference's names.
 """

@@ -45,3 +45,14 @@ def test_serve_entry_point_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_core_loads_no_jax():
+    """The distributed path (mesh, algebra, grids, matmuls, Floyd-Warshall)
+    and its kernels load neither JAX nor the reference package."""
+    code = ("import sys, repro_torch.core, repro_torch.kernels.ops; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -1,0 +1,135 @@
+"""The port's matmul, matmul_acc and minplus against the JAX package's.
+
+The wrappers of ``repro_torch.kernels`` take their plain versions for CPU
+tensors; these are held against the Pallas kernels in interpret mode and
+against ``kernels/ref.py`` on the same numpy inputs, over the reference's
+own shape sweeps and bounds (``tests/test_kernels.py``).  The CUDA kernels
+run only on the card: ``chip_smoke.py`` holds them against these plain
+versions there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro_torch.kernels import matmul as km
+from repro_torch.kernels import minplus as kmp
+from repro_torch.kernels import ops
+
+# f32 products in full f32 (no TF32) wherever these tests meet a CUDA device
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (128, 128, 128, 128, 128, 128),
+    (256, 512, 256, 128, 128, 256),
+    (512, 256, 384, 256, 128, 128),
+    (64, 64, 64, 64, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_matmul_matches_pallas(m, k, n, bm, bn, bk, dtype):
+    rng = np.random.RandomState(m + k + n)
+    a, b = rng.randn(m, k).astype(dtype), rng.randn(k, n).astype(dtype)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    tol = 2e-2 if dtype == np.float16 else 1e-4
+    for want in (jops.matmul(jnp.asarray(a), jnp.asarray(b), bm=bm, bn=bn, bk=bk,
+                             interpret=True), ref.matmul(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol * 10)
+
+
+def test_matmul_out_dtype():
+    rng = np.random.RandomState(1)
+    a, b = rng.randn(64, 32).astype(np.float16), rng.randn(32, 48).astype(np.float16)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b), out_dtype=torch.float16)
+    want = ref.matmul(jnp.asarray(a), jnp.asarray(b), out_dtype=jnp.float16)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-1)
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (128, 128, 128, 128, 128, 128),
+    (256, 512, 256, 128, 128, 256),
+    (64, 64, 64, 64, 64, 64),
+])
+def test_matmul_acc_matches_pallas(m, k, n, bm, bn, bk):
+    """matmul_acc(a, b, c) == c + a @ b, written into c's storage."""
+    rng = np.random.RandomState(m * 3 + k + n)
+    a, b, c = (rng.randn(*s).astype(np.float32) for s in ((m, k), (k, n), (m, n)))
+    want = jops.matmul_acc(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), bm=bm, bn=bn,
+                           bk=bk, interpret=True)
+    ct = torch.from_numpy(c.copy())
+    got = ops.matmul_acc(torch.from_numpy(a), torch.from_numpy(b), ct)
+    assert got.data_ptr() == ct.data_ptr()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(ct.numpy(), c + np.asarray(ref.matmul(a, b)), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_matmul_acc_on_a_column_panel():
+    """The panel loops pass column slices of a block (unit inner stride, a
+    row stride wider than the panel); c is updated in place."""
+    rng = np.random.RandomState(3)
+    blk = torch.from_numpy(rng.randn(32, 64).astype(np.float32))
+    b = torch.from_numpy(rng.randn(16, 24).astype(np.float32))
+    c = torch.zeros((32, 24))
+    panel = blk[:, 16:32]
+    assert panel.stride() == (64, 1)
+    ops.matmul_acc(panel, b, c)
+    np.testing.assert_allclose(c.numpy(), panel.numpy() @ b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _minplus_inputs(m, k, n, seed):
+    rng = np.random.RandomState(seed)
+    a, b = (rng.rand(m, k) * 10).astype(np.float32), (rng.rand(k, n) * 10).astype(np.float32)
+    a[rng.rand(m, k) < 0.1] = np.inf
+    b[rng.rand(k, n) < 0.1] = np.inf
+    return a, b
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 64, 128), (64, 256, 64)])
+@pytest.mark.parametrize("uk", [4, 8])
+def test_minplus_matches_pallas(m, k, n, uk):
+    a, b = _minplus_inputs(m, k, n, m + k + n + uk)
+    got = ops.minplus(torch.from_numpy(a), torch.from_numpy(b))
+    want = jops.minplus(jnp.asarray(a), jnp.asarray(b), bm=64, bn=64, bk=64, uk=uk,
+                        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.minplus(a, b)))
+
+
+def test_minplus_chunks_agree_exactly(monkeypatch):
+    """The plain version's running minimum over k chunks gives the one-shot
+    minimum bit for bit, whatever the chunk."""
+    a, b = _minplus_inputs(48, 37, 40, 5)
+    want = np.asarray(ref.minplus(a, b))
+    for elems in (1, 48 * 40 * 3, 1 << 26):
+        monkeypatch.setattr(kmp, "_REF_CHUNK_ELEMS", elems)
+        got = kmp.minplus_ref(torch.from_numpy(a), torch.from_numpy(b))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_minplus_propagates_nan_as_jnp_min_does():
+    a, b = _minplus_inputs(16, 8, 16, 7)
+    a[3, 2] = np.nan
+    got = ops.minplus(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.asarray(ref.minplus(a, b))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[3]).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.ones((4, 4))
+    with pytest.raises(ValueError):
+        ops.matmul(x, torch.ones((5, 4)))
+    with pytest.raises(TypeError):
+        ops.matmul(x.double(), x.double())
+    with pytest.raises(TypeError):
+        ops.matmul_acc(x, x, x.half())
+    with pytest.raises(TypeError):
+        ops.minplus(x.half(), x.half())
+    with pytest.raises(ValueError):          # neither all on the CPU nor on one card
+        km.matmul(x.to("meta"), x.to("meta"))
