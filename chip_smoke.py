@@ -19,6 +19,11 @@ error:
                  and pipelined 1x8 block shapes of n = 8192 (in place, no
                  (m, n) temporary); minplus at 4096^3 with integer weights
                  and +inf entries (exactly equal);
+                 flash attention at the fused prefill's shape (q (1, 24,
+                 512, 128), k/v (1, 8, 512, 128), causal), a ragged causal
+                 575, L = 8192 causal and Mixtral's window 4096 with 48/8
+                 heads, in bf16 and f32, and query rows with no key
+                 (exactly 0);
   4. serve    -- full-width Llama-3.2-3B in bf16, random weights from a
                  seeded generator, through ``Scheduler(paged=True)``: 8
                  requests of 512 prompt and 64 generated tokens, 4 slots,
@@ -44,6 +49,16 @@ error:
                  minplus kernel (24 launches), equal to the plain-version run
                  and to the single-device oracle; the faithful Algorithm 3
                  at n = 2048 (2n staged broadcasts).
+
+Between 6 and 7, on the same model and request mix as 4:
+
+  serve aligned  -- ``Scheduler(paged=False)``, the end-aligned engine: one
+                 fused prefill per admission (bucket 16, max_len 576),
+                 through the flash kernel in every layer, so its launch count
+                 must equal non-empty admissions x 28; prints the share of
+                 greedy tokens equal to the paged engine's (not gated);
+  oracle aligned -- one served request re-run teacher-forced through a fused
+                 prefill and end-aligned decode steps, against ``forward``.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
@@ -75,6 +90,7 @@ ORACLE_REL_RMS = 5e-2
 
 ARCH = "llama3.2-3b"
 SLOTS, BLOCK, CHUNK, PROMPT, GEN, N_REQ, STAGGER = 4, 16, 256, 512, 64, 8, 2
+BUCKET = 16                                  # the end-aligned engine's prompt pad
 
 
 def fail(msg: str) -> None:
@@ -236,6 +252,104 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# flash attention: the end-aligned engine's fused prefill and ``forward``
+FLASH_CASES = [  # (label, B, Hq, Hkv, Lq, Lk, hd, causal, window)
+    ("serve prefill", 1, 24, 8, PROMPT, PROMPT, 128, True, None),
+    ("ragged causal", 1, 24, 8, PROMPT + GEN - 1, PROMPT + GEN - 1, 128, True, None),
+    ("long causal", 1, 24, 8, 8192, 8192, 128, True, None),
+    ("Mixtral window", 1, 48, 8, 8192, 8192, 128, True, 4096),
+]
+
+
+def _live_pairs(lq: int, lk: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs of one head: what this run's masks keep."""
+    qpos = np.arange(lq, dtype=np.int64) + (lk - lq)
+    hi = np.minimum(qpos, lk - 1) if causal else np.full(lq, lk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(lq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _library_flash(q, k, v, causal, window):
+    """scaled_dot_product_attention: the yardstick, never used by the port."""
+    if window is None:
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    lq, lk = q.shape[2], k.shape[2]
+    qpos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    kpos = torch.arange(lk, device=q.device)[None, :]
+    mask = (qpos - kpos < window) & ((kpos <= qpos) if causal else True)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                            enable_gqa=True)
+
+
+def phase_flash_kernels() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rec = {}
+    for label, b, hq, hkv, lq, lk, hd, causal, window in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            def make():
+                return (torch.randn((b, hq, lq, hd), generator=g, device="cuda").to(dtype),
+                        torch.randn((b, hkv, lk, hd), generator=g, device="cuda").to(dtype),
+                        torch.randn((b, hkv, lk, hd), generator=g, device="cuda").to(dtype))
+            q, k, v = make()
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            tol = KERNEL_TOL[dtype]
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all():
+                fail(f"flash_attention {label} {dtype}: non-finite output")
+            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                fail(f"flash_attention {label} {dtype}: max |kernel - plain| = {err:.3e} "
+                     f"beyond atol=rtol={tol:g}")
+            del got, want
+            esz = q.element_size()
+            nbytes = 2 * q.numel() * esz + 2 * k.numel() * esz      # q, out; k, v
+            cases = _copies(make, nbytes)
+            slow = lq > 2048
+            ms = device_ms([lambda c=c: fa.flash_attention(*c, causal=causal, window=window)
+                            for c in cases], replays=3 if slow else 10)
+            plain_ms = device_ms([lambda c=c: fa.flash_attention_ref(*c, causal=causal,
+                                                                     window=window)
+                                  for c in cases], replays=2 if slow else 10)
+            library_ms = device_ms([lambda c=c: _library_flash(*c, causal, window)
+                                    for c in cases], replays=2 if slow else 10)
+            del cases
+            pairs = _live_pairs(lq, lk, causal, window) * b * hq
+            bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 4 * hd * pairs, PEAK_OPS_S[dtype])
+            rec[(label, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+            print(f"[kernels] flash_attention {label} {str(dtype)[6:]} q ({b}, {hq}, {lq}, "
+                  f"{hd}) k/v ({b}, {hkv}, {lk}, {hd}) causal={causal} window={window}: "
+                  f"max|kernel-plain| {err:.3e} (atol=rtol={tol:g}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"= max({pairs / 1e6:.2f} M live pairs x 4 x {hd} = "
+                  f"{4 * hd * pairs / 1e9:.2f} GFLOP / {PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = "
+                  f"{ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB / 3.35 TB/s = {bytes_ms:.4f} ms), "
+                  f"by {by}", flush=True)
+        torch.cuda.empty_cache()
+    # query rows that see no key (Lq > Lk, causal): exactly 0, row by row --
+    # row 63 of the first 64-row tile sees a key, rows 0-62 do not
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 24, 100, 128), generator=g, device="cuda").to(dtype)
+        k = torch.randn((1, 8, 37, 128), generator=g, device="cuda").to(dtype)
+        v = torch.randn((1, 8, 37, 128), generator=g, device="cuda").to(dtype)
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        dead = int((got[:, :, :63] != 0).sum())
+        err = (got[:, :, 63:].float() - want[:, :, 63:].float()).abs().max().item()
+        print(f"[kernels] flash_attention no-key rows {str(dtype)[6:]} q (1, 24, 100, 128) "
+              f"k/v (1, 8, 37, 128) causal: rows 0-62 see no key, {dead} nonzero entries "
+              f"there; rows 63-99 max|kernel-plain| {err:.3e}", flush=True)
+        if dead or not err <= KERNEL_TOL[dtype]:
+            fail(f"flash_attention {dtype}: rows with no key are not all 0, or the rest "
+                 f"differ from the plain version ({err:.3e})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 def phase_serve(cfg, params):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.scheduler import Scheduler, make_requests
@@ -266,7 +380,7 @@ def phase_serve(cfg, params):
           f"{out['decode_steps']} decode steps, {launches} kernel launches; peak pool "
           f"occupancy {out['pool']['peak_occupancy']:.3f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return comps[0], launches
+    return comps, launches
 
 
 def phase_oracle(cfg, params, comp) -> None:
@@ -288,7 +402,7 @@ def phase_oracle(cfg, params, comp) -> None:
     pool.admit(0, PROMPT + GEN)
     cache = T.init_paged_cache(cfg, n_pages, BLOCK, device="cuda")
     prefill = S.make_chunk_prefill_step(cfg)
-    decode = S.make_decode_step(cfg, return_logits=True)
+    decode = S.make_decode_step(cfg, return_logits=True, paged=True)
     got = []
     for lo in range(0, PROMPT, CHUNK):
         ln = min(CHUNK, PROMPT - lo)
@@ -357,6 +471,82 @@ def phase_trace(cfg, params) -> None:
           f"{kinds['paged_attention'] / 1e3:.1f} ms, matmul {kinds['matmul'] / 1e3:.1f} ms, "
           f"other {kinds['other'] / 1e3:.1f} ms (wall time is under the profiler)",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+def phase_serve_aligned(cfg, params, paged_comps):
+    """The end-aligned engine on the paged phase's request mix: one fused
+    prefill per admission, through the flash kernel in each of the layers."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.scheduler import Scheduler, make_requests
+    sched = Scheduler(cfg, params, slots=SLOTS, max_len=PROMPT + GEN, bucket=BUCKET)
+    sched.run(make_requests(2, PROMPT, 2, cfg.vocab))          # warmup
+    sched.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = make_requests(N_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
+    fa.launches = 0
+    out = sched.run(reqs)
+    launches = fa.launches
+    comps = out["completions"]
+    if sorted(comps) != list(range(N_REQ)):
+        fail(f"served {sorted(comps)} of {N_REQ} requests")
+    for c in comps.values():
+        if len(c.tokens) != GEN or not all(0 <= t < cfg.vocab for t in c.tokens):
+            fail(f"request {c.rid}: {len(c.tokens)} tokens, or one out of the vocab")
+    admissions = sum(1 for r in reqs if len(r.prompt) > 0)
+    want = admissions * cfg.n_layers
+    if out["prefills"] != admissions or launches != want:
+        fail(f"flash_attention launches {launches}, fused prefills {out['prefills']}; want "
+             f"{admissions} non-empty admissions x {cfg.n_layers} layers = {want}")
+    ttft = sorted(c.ttft_s for c in comps.values())
+    same = sum(a == b for i in comps for a, b in zip(comps[i].tokens, paged_comps[i].tokens))
+    print(f"[serve aligned] {cfg.name} bf16, {N_REQ} req x ({PROMPT} prompt + {GEN} gen), "
+          f"{SLOTS} slots, max_len {PROMPT + GEN}, bucket {BUCKET}: {out['generated']} tokens "
+          f"in {out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
+          f"decode steps, {out['prefills']} fused prefills, {launches} flash_attention "
+          f"launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"greedy tokens equal to the paged engine's at {same} of {N_REQ * GEN} positions "
+          f"({same / (N_REQ * GEN):.3f}, not gated)", flush=True)
+    return comps[0], launches
+
+
+def phase_oracle_aligned(cfg, params, comp) -> None:
+    """Re-run one served request teacher-forced through a fused prefill and
+    end-aligned decode steps; hold every step's logits against ``forward``
+    over the same sequence."""
+    from repro_torch.launch.scheduler import make_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+    prompt = np.asarray(make_requests(N_REQ, PROMPT, GEN, cfg.vocab,
+                                      stagger=STAGGER)[comp.rid].prompt)
+    toks = np.concatenate([prompt, np.asarray(comp.tokens[:-1], np.int32)])
+    seq = torch.from_numpy(toks.astype(np.int64)).cuda()[None]
+    with torch.no_grad():
+        ref = T.forward(params, seq, cfg)[0, PROMPT - 1:]            # (GEN, V)
+    cache = T.init_cache(cfg, 1, PROMPT + GEN, device="cuda")
+    prefill = S.make_prefill_step(cfg)
+    decode = S.make_decode_step(cfg, return_logits=True)
+    logits, cache = prefill(params, {"tokens": seq[:, :PROMPT].to(torch.int32),
+                                     "length": torch.tensor([PROMPT], device="cuda")}, cache)
+    got = [logits[0]]
+    for i in range(GEN - 1):
+        pos = PROMPT + i
+        logits, cache = decode(params, seq[0, pos:pos + 1].to(torch.int32), cache,
+                               torch.tensor([pos], dtype=torch.int32, device="cuda"))
+        got.append(logits[0])
+    got = torch.stack(got)
+    if not torch.isfinite(got).all():
+        fail("end-aligned logits are not finite")
+    diff = got - ref
+    rel = (diff.norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"[oracle aligned] request {comp.rid}: fused prefill + end-aligned decode logits vs "
+          f"forward over {len(toks)} tokens: max per-row relative RMS {rel:.3e} (bound "
+          f"{ORACLE_REL_RMS:g}), max |diff| {diff.abs().max().item():.3e} of max |logit| "
+          f"{ref.abs().max().item():.3e}, argmax agreement {agree:.3f}", flush=True)
+    if rel > ORACLE_REL_RMS:
+        fail(f"end-aligned logits differ from forward: relative RMS {rel:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +921,7 @@ def main() -> None:
     from repro_torch.models import transformer as T
     _timed("build", phase_build)
     rec = _timed("kernels: paged attention", phase_kernels)
+    flash = _timed("kernels: flash attention", phase_flash_kernels)
     tile = _timed("kernels: matmul, matmul_acc, minplus", phase_tile_kernels)
     cfg = configs.get(ARCH)
     t0 = time.perf_counter()
@@ -740,9 +931,11 @@ def main() -> None:
                    [w for lp in params["layers"] for d in lp.values() for w in d.values()])
     print(f"[init] {cfg.name}: {n_params / 1e9:.3f} B parameters (bf16 matrices) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    comp, launches = _timed("serve", phase_serve, cfg, params)
-    _timed("oracle", phase_oracle, cfg, params, comp)
+    comps, launches = _timed("serve", phase_serve, cfg, params)
+    _timed("oracle", phase_oracle, cfg, params, comps[0])
     _timed("trace", phase_trace, cfg, params)
+    comp, flash_launches = _timed("serve aligned", phase_serve_aligned, cfg, params, comps)
+    _timed("oracle aligned", phase_oracle_aligned, cfg, params, comp)
     del params
     torch.cuda.empty_cache()
     counts = _timed("ranks", phase_distributed)
@@ -756,6 +949,8 @@ def main() -> None:
                 tile[("matmul_acc", (4096, 2048, 2048))]),
         _record("minplus", csrc + "minplus.cu", ref + "minplus.py:44", counts["minplus"],
                 tile[("minplus", torch.float32)]),
+        _record("flash_attention", csrc + "flash_attention.cu", ref + "flash_attention.py:84",
+                flash_launches, flash[("serve prefill", torch.bfloat16)]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,11 @@ module never sees JAX), and returns the port's parameter dict:
 
 Matrices are cast to ``dtype`` (default ``cfg.dtype``); vectors (norm
 scales and biases) stay f32, as the JAX model reads them.
+
+``cache_from_jax`` takes the end-aligned cache ``repro.models.transformer.
+init_cache`` builds (a tuple over the block pattern of ``{"attn": (K, V)}``,
+leaves stacked over periods, as numpy) and returns the port's list of
+per-layer (K, V) rows ``(B, L, Hkv, hd)``, in the same layer order.
 """
 from __future__ import annotations
 
@@ -56,3 +61,23 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
     if cfg.tie_embeddings and "unembed" in out["embed"]:
         raise ValueError("a tied-embedding config has no separate unembed matrix")
     return out
+
+
+def cache_from_jax(tree: Any, cfg: ModelConfig, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> list:
+    """JAX end-aligned cache (numpy leaves) -> the port's per-layer (K, V)
+    list.  ``dtype`` defaults to the leaves' own (bf16 as JAX stores it,
+    carried over exactly)."""
+    period = cfg.block_pattern
+    if len(tree) != len(period) or any(k != "attn" for k in period):
+        raise ValueError(f"cache tree has {len(tree)} kinds for pattern {period}; "
+                         f"only 'attn' caches are ported")
+
+    def one(a, j):
+        a = np.asarray(a)[j]
+        bf16 = a.dtype.name == "bfloat16"    # numpy has no bf16: widen exactly
+        t = torch.from_numpy(np.array(a, dtype=np.float32 if bf16 else a.dtype))
+        return t.to(device=device, dtype=dtype or (torch.bfloat16 if bf16 else t.dtype))
+
+    return [tuple(one(a, j) for a in tree[i]["attn"])
+            for j in range(cfg.n_periods) for i in range(len(period))]

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``paged_attention`` -- paged decode attention (``csrc/paged_attention.cu``).
+``flash_attention`` -- full-sequence attention of ``forward`` and the fused
+prefill (``csrc/flash_attention.cu``).
 ``matmul`` / ``matmul_acc`` -- tiled f32 block products (``csrc/matmul.cu``).
 ``minplus`` -- the (min, +) product (``csrc/minplus.cu``).
 ``ops`` re-exports them under the reference's names.

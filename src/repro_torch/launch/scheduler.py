@@ -1,23 +1,33 @@
-"""Continuous-batching decode scheduler over the paged KV cache.
+"""Slot-based continuous-batching decode scheduler (the serving subsystem).
 
-The port of the JAX package's ``launch/scheduler.py`` in its paged mode:
+The port of the JAX package's ``launch/scheduler.py``:
 
   * A fixed pool of ``slots`` rows backs one fixed-shape decode step; the
     per-slot position vector lets every request advance independently, so
     requests join and leave mid-flight.
-  * Requests address K/V through per-request page chains
-    (``serving.BlockPool``), so ``prompt + gen`` is bounded by pool
-    capacity.  Admission reserves worst-case pages and then runs a chunked
-    prefill, one fixed ``(1, chunk)`` slice per prefilling slot per tick,
-    interleaved with the decode tick (the admission stall is bounded by one
-    chunk).
-  * Eviction frees the pages and kills the slot's table row, so a parked
-    slot's writes drop and its reads see no page.
+  * Eviction: after ``gen`` tokens the slot returns to the free list; a
+    parked slot keeps riding the batched step, but its writes stay
+    invisible to the next occupant (end-aligned: behind the causal mask, or
+    dropped past the row; paged: dropped through its freed block table).
   * Arrivals are measured in engine ticks (decode steps), a deterministic
     arrival process; wall-clock time only feeds the reported latency and
     throughput, read after ``torch.cuda.synchronize()`` on the card.
 
-The end-aligned engine (``paged=False``) is not ported yet.
+Two engines (``paged=`` selects one):
+
+  | engine             | cache layout            | admission (prefill)      | request length limit        |
+  |--------------------|-------------------------|--------------------------|-----------------------------|
+  | end-aligned (dflt) | per-slot (max_len) row  | ONE fused cache-writing  | prompt+gen <= max_len per   |
+  |                    |                         | forward, bucketed padded | slot (<= window for SWA)    |
+  | paged              | shared page arena +     | CHUNKED: fixed (1,chunk) | prompt+gen <= pool capacity |
+  |                    | per-request block table | slices interleaved with  | (and the block-table width  |
+  |                    | (serving/kvcache.py)    | decode ticks             | cap max_len)                |
+
+End-aligned admission stalls every in-flight decode for a whole prompt
+forward (through the flash-attention kernel); chunked prefill bounds that
+stall to one ``chunk``-token slice per tick.  The recurrent per-token
+prefill fallback of the JAX engine is not ported (its model families are
+not): a config without fused prefill is refused.
 """
 from __future__ import annotations
 
@@ -96,18 +106,15 @@ class _Slot:
 
 
 class Scheduler:
-    """Continuous-batching decode engine over the paged block-pool arena.
-    The device is the parameters' device."""
+    """Continuous-batching decode engine over a fixed slot pool: end-aligned
+    cache rows, or the paged block-pool arena with ``paged=True``.  The
+    device is the parameters' device."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_len: int = 256, bos: int = 0, temperature: float = 0.0,
-                 top_p: float = 1.0, seed: int = 0, paged: bool = False,
-                 block: int = 16, pool_blocks: Optional[int] = None,
-                 chunk: int = 32):
-        if not paged:
-            raise NotImplementedError(
-                "only the paged engine is ported: pass paged=True (the "
-                "end-aligned engine is in the ROADMAP's port queue)")
+                 max_len: int = 256, bucket: int = 16, bos: int = 0,
+                 temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+                 paged: bool = False, block: int = 16,
+                 pool_blocks: Optional[int] = None, chunk: int = 32):
         if cfg.enc_dec:
             raise NotImplementedError("enc-dec serving is not scheduled yet")
         if slots < 1 or max_len < 2:
@@ -116,33 +123,52 @@ class Scheduler:
         if temperature < 0.0 or not 0.0 < top_p <= 1.0:
             raise ValueError(f"need temperature >= 0 and 0 < top_p <= 1, "
                              f"got {temperature}/{top_p}")
-        if not T.supports_paged(cfg):
+        if not paged and cfg.window is not None and max_len > cfg.window:
             raise NotImplementedError(
-                f"paged serving needs a pure-attention no-SWA pattern; "
-                f"got {cfg.block_pattern} (window={cfg.window})")
-        if block < 1 or chunk < 1:
-            raise ValueError(f"need block >= 1 and chunk >= 1, got "
-                             f"{block}/{chunk}")
+                f"slots are end-aligned: max_len {max_len} must fit the "
+                f"attention window {cfg.window}")
         self.cfg, self.params = cfg, params
         self.device = params["embed"]["embedding"].device
-        self.slots, self.max_len, self.bos = slots, max_len, bos
+        self.slots, self.max_len = slots, max_len
+        self.bucket, self.bos = max(1, bucket), bos
         self.temperature, self.top_p, self.seed = temperature, top_p, seed
         self.sampling = temperature > 0.0
-        self.block, self.chunk = block, chunk
-        self.n_pages = -(-max_len // block)          # block-table width
-        self.pool = BlockPool(pool_blocks if pool_blocks is not None
-                              else slots * self.n_pages, block)
-        self._decode = S.make_decode_step(cfg, return_logits=self.sampling)
-        self._chunk_prefill = S.make_chunk_prefill_step(cfg)
+        self.paged = paged
+        if paged:
+            if not T.supports_paged(cfg):
+                raise NotImplementedError(
+                    f"paged serving needs a pure-attention no-SWA pattern; "
+                    f"got {cfg.block_pattern} (window={cfg.window})")
+            if block < 1 or chunk < 1:
+                raise ValueError(f"need block >= 1 and chunk >= 1, got "
+                                 f"{block}/{chunk}")
+            self.block, self.chunk = block, chunk
+            self.n_pages = -(-max_len // block)          # block-table width
+            self.pool = BlockPool(pool_blocks if pool_blocks is not None
+                                  else slots * self.n_pages, block)
+            self._chunk_prefill = S.make_chunk_prefill_step(cfg)
+        elif not T.supports_fused_prefill(cfg):
+            raise NotImplementedError(
+                f"{cfg.block_pattern} needs the recurrent per-token prefill "
+                f"fallback, which is not ported (ROADMAP, port queue: other "
+                f"model families)")
+        else:
+            self._prefill = S.make_prefill_step(cfg)
+        self._decode = S.make_decode_step(cfg, return_logits=self.sampling, paged=paged)
         self.reset()
 
     def reset(self) -> None:
-        """Fresh arena, pool and slot state and an empty submission queue;
-        the sampling stream restarts from the seed for reproducible runs."""
-        self.cache = T.init_paged_cache(self.cfg, self.pool.n_blocks, self.block,
-                                        device=self.device)
-        self.pool.reset()
-        self._tables = np.full((self.slots, self.n_pages), -1, np.int32)
+        """Fresh cache (and pool) and slot state and an empty submission
+        queue; the sampling stream restarts from the seed for reproducible
+        runs."""
+        if self.paged:
+            self.cache = T.init_paged_cache(self.cfg, self.pool.n_blocks, self.block,
+                                            device=self.device)
+            self.pool.reset()
+            self._tables = np.full((self.slots, self.n_pages), -1, np.int32)
+        else:
+            self.cache = T.init_cache(self.cfg, self.slots, self.max_len,
+                                      device=self.device)
         self._tok = np.zeros((self.slots,), np.int32)
         self._pos = np.zeros((self.slots,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -156,31 +182,76 @@ class Scheduler:
             return int(sample_tokens(logits, self._gen, self.temperature, self.top_p)[0])
         return int(torch.argmax(logits, dim=-1)[0])
 
+    def _insert(self, row, slot: int) -> None:
+        """Copy a one-row cache into ``slot``'s row of the slot cache, in
+        place, from position 0 (JAX's ``_insert_impl``); positions past the
+        row keep the previous occupant's K/V, behind the causal mask."""
+        for (ck, cv), (rk, rv) in zip(self.cache, row):
+            ck[slot, :rk.shape[1]].copy_(rk[0])
+            cv[slot, :rv.shape[1]].copy_(rv[0])
+
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
         """Validate and enqueue one request (``run`` drains the queue).
-        Length limits are enforced here, with the limit named: the
-        block-table width and the pool capacity."""
+        Length limits are enforced here, with the limit named: end-aligned
+        mode is bounded by the per-slot row, paged mode by the block-table
+        width and the pool capacity."""
         lp = len(req.prompt)
         total = lp + req.gen
         if req.gen < 1 or req.arrival < 0:
             raise ValueError(f"request {req.rid}: need gen >= 1 and "
                              f"arrival >= 0, got {req.gen}/{req.arrival}")
-        if total > self.max_len:
+        if self.paged:
+            if total > self.max_len:
+                raise ValueError(
+                    f"request {req.rid}: prompt {lp} + gen {req.gen} = "
+                    f"{total} tokens exceeds the block-table width cap "
+                    f"max_len={self.max_len} ({self.n_pages} pages x block "
+                    f"{self.block})")
+            need = self.pool.blocks_needed(total)
+            if need > self.pool.n_blocks:
+                raise ValueError(
+                    f"request {req.rid}: prompt {lp} + gen {req.gen} = "
+                    f"{total} tokens needs {need} pages, pool capacity is "
+                    f"{self.pool.n_blocks} blocks x {self.block} tokens")
+        elif total > self.max_len:
             raise ValueError(
-                f"request {req.rid}: prompt {lp} + gen {req.gen} = "
-                f"{total} tokens exceeds the block-table width cap "
-                f"max_len={self.max_len} ({self.n_pages} pages x block "
-                f"{self.block})")
-        need = self.pool.blocks_needed(total)
-        if need > self.pool.n_blocks:
-            raise ValueError(
-                f"request {req.rid}: prompt {lp} + gen {req.gen} = "
-                f"{total} tokens needs {need} pages, pool capacity is "
-                f"{self.pool.n_blocks} blocks x {self.block} tokens")
+                f"request {req.rid}: prompt {lp} + gen {req.gen} = {total} "
+                f"tokens exceeds the end-aligned slot capacity "
+                f"max_len={self.max_len}")
         self._queue.append(req)
 
     # ------------------------------------------------------------------
+    def _bucketed(self, n: int) -> int:
+        return min(self.max_len, -(-n // self.bucket) * self.bucket)
+
+    def _admit(self, req: Request, slot: int) -> Optional[int]:
+        """End-aligned admission: one fused prefill of ``req``'s prompt,
+        right-padded to its bucket, into a fresh (1, bucket) row, copied into
+        ``slot``.  Returns the first token (None for an empty prompt: the
+        first token then comes from the next decode step, fed from BOS).
+        Leaves ``_tok``/``_pos`` pointing at the next decode input."""
+        prompt = np.asarray(req.prompt, np.int32)
+        lp = int(prompt.shape[0])
+        if lp == 0:
+            # no prompt: generation starts from BOS at position 0 on a
+            # zeroed row
+            self._insert(T.init_cache(self.cfg, 1, self._bucketed(1), device=self.device),
+                         slot)
+            self._tok[slot], self._pos[slot] = self.bos, 0
+            return None
+        lb = self._bucketed(lp)
+        toks = np.zeros((1, lb), np.int32)
+        toks[0, :lp] = prompt
+        batch = {"tokens": self._to_device(toks),
+                 "length": torch.tensor([lp], dtype=torch.int32, device=self.device)}
+        logits, row = self._prefill(self.params, batch,
+                                    T.init_cache(self.cfg, 1, lb, device=self.device))
+        first = self._first_token(logits)
+        self._insert(row, slot)
+        self._tok[slot], self._pos[slot] = first, lp
+        return first
+
     def _admit_paged(self, req: Request, slot: int, st: _Slot) -> None:
         """Reserve worst-case pages (so alloc-on-write can never fail
         mid-flight) and start the chunked prefill; pages are written chunk
@@ -223,8 +294,9 @@ class Scheduler:
         """Serve ``requests`` (plus anything already ``submit``ted) to
         completion.  Tokens stream per request through ``on_token(rid,
         token)`` (one host sync per engine tick).  Returns completions, the
-        tick and decode-step counts, wall time, throughput and the block
-        pool's occupancy/fragmentation report."""
+        tick, decode-step and fused-prefill counts, wall time, throughput
+        and, in paged mode, the block pool's occupancy/fragmentation
+        report."""
         for req in requests:
             self.submit(req)
         pending = deque(sorted(self._queue, key=lambda r: (r.arrival, r.rid)))
@@ -234,16 +306,17 @@ class Scheduler:
         done: Dict[int, Completion] = {}
         generated = 0
         tick = 0
-        decode_steps = 0
+        decode_steps = prefills = 0
         t0 = time.perf_counter()
 
         def finish(slot: int) -> None:
             st = active.pop(slot)
             free.append(slot)
-            # eviction: pages return to the pool; the dead table row makes
-            # any parked-slot writes drop on the device
-            self.pool.free(st.req.rid)
-            self._tables[slot] = -1
+            if self.paged:
+                # eviction: pages return to the pool; the dead table row
+                # makes any parked-slot writes drop on the device
+                self.pool.free(st.req.rid)
+                self._tables[slot] = -1
             done[st.req.rid] = Completion(
                 rid=st.req.rid, tokens=st.tokens, arrival=st.req.arrival,
                 admitted_tick=st.admitted_tick, done_tick=tick,
@@ -262,25 +335,35 @@ class Scheduler:
 
         while pending or active:
             while pending and free and pending[0].arrival <= tick:
-                if not self.pool.can_admit(len(pending[0].prompt) + pending[0].gen):
+                if self.paged and not self.pool.can_admit(
+                        len(pending[0].prompt) + pending[0].gen):
                     break          # FIFO head waits for pages to free up
                 req = pending.popleft()
                 slot = free.pop()
                 st = _Slot(req=req, admitted_tick=tick,
                            admitted_s=time.perf_counter() - t0)
                 active[slot] = st
-                self._admit_paged(req, slot, st)
-            # chunked prefill: one fixed-shape chunk per prefilling slot per
-            # tick, interleaved with the decode tick below
-            for slot in list(active):
-                st = active[slot]
-                if st.state != "prefill":
-                    continue
-                first = self._prefill_chunk_tick(slot, st)
-                if first is not None:
-                    emit(slot, first)
-                    if len(st.tokens) >= st.req.gen:
-                        finish(slot)
+                if self.paged:
+                    self._admit_paged(req, slot, st)
+                else:
+                    first = self._admit(req, slot)
+                    if first is not None:
+                        prefills += 1
+                        emit(slot, first)
+                        if len(st.tokens) >= req.gen:
+                            finish(slot)
+            if self.paged:
+                # chunked prefill: one fixed-shape chunk per prefilling slot
+                # per tick, interleaved with the decode tick below
+                for slot in list(active):
+                    st = active[slot]
+                    if st.state != "prefill":
+                        continue
+                    first = self._prefill_chunk_tick(slot, st)
+                    if first is not None:
+                        emit(slot, first)
+                        if len(st.tokens) >= st.req.gen:
+                            finish(slot)
             decoding = [s for s, st in active.items() if st.state == "decode"]
             if not decoding:
                 if active:
@@ -289,16 +372,17 @@ class Scheduler:
                     # nothing resident: fast-forward the virtual clock
                     tick = pending[0].arrival if pending else tick + 1
                 continue
-            # alloc-on-write: this tick's token lands at pos, so each
-            # decoding row's chain must cover pos+1 tokens (reserved at
-            # admission -- ensure can't fail); refresh the device tables
-            for slot in decoding:
-                st = active[slot]
-                self.pool.ensure(st.req.rid, int(self._pos[slot]) + 1)
-                self._tables[slot] = self.pool.table(st.req.rid, self.n_pages)
-            out, self.cache = self._decode(
-                self.params, self._to_device(self._tok), self.cache,
-                self._to_device(self._pos), self._to_device(self._tables))
+            args = (self._to_device(self._tok), self.cache, self._to_device(self._pos))
+            if self.paged:
+                # alloc-on-write: this tick's token lands at pos, so each
+                # decoding row's chain must cover pos+1 tokens (reserved at
+                # admission -- ensure can't fail); refresh the device tables
+                for slot in decoding:
+                    st = active[slot]
+                    self.pool.ensure(st.req.rid, int(self._pos[slot]) + 1)
+                    self._tables[slot] = self.pool.table(st.req.rid, self.n_pages)
+                args += (self._to_device(self._tables),)
+            out, self.cache = self._decode(self.params, *args)
             if self.sampling:
                 out = sample_tokens(out, self._gen, self.temperature, self.top_p)
             nxt = out.cpu().numpy()             # host sync = the stream point
@@ -315,15 +399,18 @@ class Scheduler:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
-        return {
+        out = {
             "completions": done,
             "generated": generated,
             "ticks": tick,
             "decode_steps": decode_steps,
+            "prefills": prefills,
             "wall_s": wall,
             "tok_s": generated / wall if wall > 0 else float("inf"),
-            "pool": self.pool.report(),
         }
+        if self.paged:
+            out["pool"] = self.pool.report()
+        return out
 
 
 def make_requests(n: int, prompt_len: int, gen: int, vocab: int, *,

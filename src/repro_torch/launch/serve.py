@@ -1,19 +1,21 @@
-"""Serving launcher: thin CLI over the paged continuous-batching scheduler.
+"""Serving launcher: thin CLI over the continuous-batching scheduler.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --paged \
-      --requests 8 --prompt-len 512 --gen 64 --slots 4 --chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --requests 8 --prompt-len 512 --gen 64 --slots 4
 
 Serves the arch at its published width on the card (``--device``, default
 ``cuda``), with random weights from a seeded generator; ``--reduced``
-shrinks it to the JAX CLI's CPU size.  Requests share a fixed slot pool:
-staggered arrivals are admitted mid-flight, their prompts prefilled in
+shrinks it to the JAX CLI's CPU size.  Each prompt is prefilled in ONE fused
+cache-writing forward (through the flash-attention kernel), right-padded to
+a ``--bucket`` multiple; requests share a fixed slot pool: staggered
+arrivals are admitted into free slots mid-flight, finished requests
+evicted, greedy (or sampled) tokens streamed per request
+(``launch/scheduler.py``).  ``--naive`` serves one request at a time
+(slots=1).  ``--paged`` switches to the paged engine: prompts prefilled in
 ``--chunk``-token slices written into ``--block``-token pages of a shared
-arena, finished requests evicted, greedy (or sampled) tokens streamed per
-request (``launch/scheduler.py``).  ``--naive`` serves one request at a
-time (slots=1).  A warmup pass runs first, so the kernel build and the
-library's first-call set-up never land in the reported tok/s; every timing
-reads after ``torch.cuda.synchronize()``.  Only the paged engine is ported:
-``--paged`` is required.
+arena.  A warmup pass runs first, so the kernel build and the library's
+first-call set-up never land in the reported tok/s; every timing reads
+after ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
@@ -44,10 +46,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="one-request-at-a-time baseline (slots=1)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV-cache engine: block-pool arena + chunked "
-                         "prefill admission (the only engine ported)")
-    ap.add_argument("--block", type=int, default=16, help="page size in tokens")
+                         "prefill admission (pure-attention no-SWA archs)")
+    ap.add_argument("--bucket", type=int, default=16,
+                    help="prompt pad bucket of the fused prefill (end-aligned "
+                         "engine)")
+    ap.add_argument("--block", type=int, default=16,
+                    help="page size in tokens (only with --paged)")
     ap.add_argument("--chunk", type=int, default=32,
-                    help="prefill tokens consumed per tick")
+                    help="prefill tokens consumed per tick (only with --paged)")
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="total pages in the pool (default: slots x "
                          "ceil(max_len/block))")
@@ -58,17 +64,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the sampling stream")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("only the paged engine is ported: pass --paged (the end-aligned "
-                 "engine is in the ROADMAP's port queue)")
     if args.requests < 1 or args.gen < 1:
         ap.error(f"--requests and --gen must be >= 1 "
                  f"(got {args.requests}/{args.gen})")
     if args.prompt_len < 0 or args.slots < 1 or args.stagger < 0:
         ap.error("--prompt-len/--stagger must be >= 0 and --slots >= 1")
-    if args.block < 1 or args.chunk < 1 or \
+    if args.block < 1 or args.chunk < 1 or args.bucket < 1 or \
             (args.pool_blocks is not None and args.pool_blocks < 1):
-        ap.error("--block/--chunk/--pool-blocks must be >= 1")
+        ap.error("--block/--chunk/--bucket/--pool-blocks must be >= 1")
     if args.temperature < 0 or not 0 < args.top_p <= 1:
         ap.error("--temperature must be >= 0 and --top-p in (0, 1]")
     if args.prompt_len + args.gen < 2:
@@ -77,7 +80,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    if not T.supports_paged(cfg):
+    if args.paged and not T.supports_paged(cfg):
         raise SystemExit(f"--paged needs a pure-attention no-SWA arch; "
                          f"{cfg.name} has pattern {cfg.block_pattern} "
                          f"(window={cfg.window})")
@@ -86,9 +89,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     slots = 1 if args.naive else args.slots
     max_len = args.prompt_len + args.gen
-    sched = Scheduler(cfg, params, slots=slots, max_len=max_len,
+    if not args.paged and cfg.window is not None and max_len > cfg.window:
+        raise SystemExit(f"prompt+gen {max_len} exceeds the attention window "
+                         f"{cfg.window} (end-aligned slots; --paged lifts the "
+                         f"limit for no-SWA archs)")
+    sched = Scheduler(cfg, params, slots=slots, max_len=max_len, bucket=args.bucket,
                       temperature=args.temperature, top_p=args.top_p,
-                      seed=args.seed, paged=True, block=args.block,
+                      seed=args.seed, paged=args.paged, block=args.block,
                       chunk=args.chunk, pool_blocks=args.pool_blocks)
 
     # warmup: kernel build and first-call set-up outside the timed run
@@ -103,7 +110,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if len(comps) != args.requests:
         raise RuntimeError(f"served {len(comps)} of {args.requests} requests")
     mode = "naive (1 slot)" if args.naive else f"batched ({slots} slots)"
-    mode += f", paged (block={args.block} chunk={args.chunk} pool={sched.pool.n_blocks})"
+    if args.paged:
+        mode += f", paged (block={args.block} chunk={args.chunk} pool={sched.pool.n_blocks})"
+    else:
+        mode += f", end-aligned (fused prefill, bucket={args.bucket})"
     if args.temperature > 0:
         mode += f", T={args.temperature} top_p={args.top_p}"
     ttft = sorted(c.ttft_s for c in comps.values())
@@ -113,11 +123,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"ttft (admission->first token) p50/p99: "
           f"{ttft[len(ttft) // 2] * 1e3:.1f}/"
           f"{ttft[int(len(ttft) * 0.99)] * 1e3:.1f} ms")
-    rep = out["pool"]
-    print(f"pool: {rep['n_blocks']} blocks x {rep['block']} toks, peak "
-          f"occupancy {rep['peak_occupancy']:.2f}, end occupancy "
-          f"{rep['occupancy']:.2f}, internal fragmentation at peak "
-          f"{rep['frag_at_peak']:.2f}")
+    if args.paged:
+        rep = out["pool"]
+        print(f"pool: {rep['n_blocks']} blocks x {rep['block']} toks, peak "
+              f"occupancy {rep['peak_occupancy']:.2f}, end occupancy "
+              f"{rep['occupancy']:.2f}, internal fragmentation at peak "
+              f"{rep['frag_at_peak']:.2f}")
     print("sample:", comps[0].tokens[:12])
     return out
 

@@ -9,12 +9,18 @@ Pure functions over dict params, mirroring the JAX package's
     ``cfg.dtype`` inside every ``dense``; the port stores matrices in
     ``cfg.dtype`` to begin with, which gives the same numbers without the
     per-call cast.  Norm scales stay f32, as the JAX model reads them.
-  * paged cache: ``cache`` is a (K, V) pair of page arenas ``(n_blocks,
-    block, Hkv, hd)`` written in place, where JAX donates and rewrites them.
+  * caches are written in place, where JAX donates and rewrites them: the
+    paged cache is a (K, V) pair of page arenas ``(n_blocks, block, Hkv,
+    hd)``; the end-aligned cache a (K, V) pair of per-slot rows ``(B, L, Hkv,
+    hd)`` (an SWA ring when L is the window).
+  * full-sequence attention with Lq == Lk at offset 0 -- the no-cache
+    ``forward``, a fused prefill from position 0, an SWA prefill longer than
+    the ring -- runs through the flash-attention kernel
+    (``kernels/flash_attention.py``); decode, per-row offsets and the paged
+    chunked prefill stay on ``_sdpa``, as in JAX.
 
-The end-aligned cache branch, sharding constraints, the manual
-sequence-sharded attention and the FooPar tensor-parallel MLP are not ported
-yet (ROADMAP, port queue).
+Sharding constraints, the manual sequence-sharded attention and the FooPar
+tensor-parallel MLP are not ported yet (ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, torch_dtype
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 
 Params = dict
@@ -177,6 +184,29 @@ def _write_pages(arena: torch.Tensor, entry: torch.Tensor, off: torch.Tensor,
     arena[entry[live].long(), off[live].long()] = rows[live].to(arena.dtype)
 
 
+def _write_rows(rows: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``rows[i, pos[i]] = new[i]`` for every i with ``0 <= pos[i] < L``; the
+    rest are dropped (JAX's ``mode="drop"`` scatter).  PyTorch faults on an
+    out-of-range index, and a clamped one would overwrite a live slot, so a
+    dead row is sent to its own slot 0 and writes back the value it read
+    there (no host sync, unlike removing the dead rows first)."""
+    live = (pos >= 0) & (pos < rows.shape[1])
+    idx = torch.where(live, pos, 0).long()
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    rows[bidx, idx] = torch.where(live[:, None, None], new.to(rows.dtype), rows[bidx, idx])
+
+
+def _flash(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Lq == Lk attention at offset 0 through the flash-attention kernel, in
+    the model's layout: q (B, L, Hkv, rep, hd) and k, v (B, L, Hkv, hd) go in
+    as strided (B, H, L, hd) views, no copies; returns (B, L, Hkv, rep, hd)."""
+    b, lq, hkv, rep, hd = q.shape
+    out = flash_attention(q.reshape(b, lq, hkv * rep, hd).transpose(1, 2),
+                          k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                          window=window)
+    return out.transpose(1, 2).reshape(b, lq, hkv, rep, hd)
+
+
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -185,7 +215,12 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Self-attention.
 
-    No cache: full (causal) attention over x.
+    No cache: full (causal) attention over x, through the flash kernel.
+    End-aligned cache (``cache`` without ``block_tables``): per-slot rows
+    ``(B, L, Hkv, hd)``.  Decode writes each row's token at its own (B,)
+    ``cache_pos`` (a position past the row drops); a fused prefill writes at
+    scalar ``cache_pos`` (an SWA prompt longer than the ring keeps its last L
+    tokens at their ring slots); then q attends end-aligned to the cache.
     Paged decode/prefill (``cache`` and ``block_tables`` given): ``cache`` is
     the (K, V) pair of page arenas ``(n_blocks, block, Hkv, hd)``; each
     request writes and reads through its block-table row.  Decode is a (B,)
@@ -207,11 +242,47 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     k = rope(k, positions, cfg)
 
     new_cache = None
-    if cache is not None:
-        if block_tables is None:
-            raise NotImplementedError(
-                "the end-aligned KV cache is not ported yet (ROADMAP, port "
-                "queue: the end-aligned engine); pass block_tables for the paged cache")
+    if cache is not None and block_tables is None:
+        ck, cv = cache                      # (B, L, Hkv, hd) rows
+        lk = ck.shape[1]
+        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+        if per_row:
+            # continuous-batching decode (s == 1): each row writes its token
+            # at its own slot; a parked slot past the row drops its write
+            _write_rows(ck, cache_pos, k[:, 0])
+            _write_rows(cv, cache_pos, v[:, 0])
+        elif s > lk:
+            # fused SWA prefill, prompt longer than the ring: keep the last
+            # lk tokens at their ring slots (token j -> slot j % lk)
+            slots = torch.arange(s - lk, s, device=x.device) % lk
+            ck[:, slots] = k[:, s - lk:].to(ck.dtype)
+            cv[:, slots] = v[:, s - lk:].to(cv.dtype)
+        else:
+            # JAX's dynamic_update_slice: the start is clamped so the update
+            # fits the row
+            start = min(max(int(cache_pos), 0), lk - s)
+            ck[:, start:start + s] = k.to(ck.dtype)
+            cv[:, start:start + s] = v.to(cv.dtype)
+        new_cache = (ck, cv)
+        if s > lk:
+            # prefill longer than the ring: attend the full in-flight k/v
+            # (the cache holds only the trailing window)
+            out = _flash(q, k, v, causal=True, window=cfg.window)
+        elif cfg.window is not None and lk == cfg.window and s == 1:
+            # ring decode: before the first wrap only pos+1 slots hold real
+            # tokens (the untouched slots would soak up softmax mass)
+            valid = torch.clamp(positions[..., -1] + 1, max=lk)
+            out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
+                        kv_len_valid=valid)
+        elif isinstance(cache_pos, int) and cache_pos == 0:
+            # fused prefill from position 0: Lq == Lk == s over the rows just
+            # written, in the cache's dtype as JAX reads them (keys past s
+            # are causally invisible)
+            out = _flash(q, ck[:, :s], cv[:, :s], causal=True, window=cfg.window)
+        else:
+            # end-aligned: query position == cache_pos
+            out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)
+    elif cache is not None:
         if cfg.window is not None:
             raise NotImplementedError("paged attention needs full (no-SWA) attention")
         ck, cv = cache
@@ -252,7 +323,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
                         causal=True, window=None, q_offset=cache_pos)
         new_cache = (ck, cv)
     else:
-        out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
+        out = _flash(q, k, v, causal=causal, window=cfg.window)
 
     out = out.reshape(b, s, hq * hd)
     return dense(out, p["wo"], cfg), new_cache

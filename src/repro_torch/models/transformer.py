@@ -2,17 +2,19 @@
 
 Mirrors the JAX package's ``models/transformer.py``.  JAX stacks the layer
 parameters over periods and scans them; here ``params["layers"]`` is a
-plain list with one dict per layer and the scan is a Python loop.  The paged
-cache is a list with one (K, V) pair of page arenas per layer, updated in
-place.
+plain list with one dict per layer and the scan is a Python loop.  A cache
+is a list with one (K, V) pair per layer, updated in place: per-slot rows
+``(B, L, Hkv, hd)`` (end-aligned) or page arenas (paged).
 
   * ``forward``: full-sequence logits, no cache (the tests' and
-    ``chip_smoke.py``'s oracle for the decode path);
+    ``chip_smoke.py``'s oracle for the decode paths);
+  * ``init_cache`` / ``prefill`` / ``decode_step``: the end-aligned serving
+    engine's model calls (one fused cache-writing prefill per prompt, a
+    batched decode over per-row positions);
   * ``init_paged_cache`` / ``prefill_paged`` / ``decode_step(block_tables=)``:
     the paged serving engine's model calls.
 
-MoE, SSM and xLSTM blocks, the end-aligned cache and fused prefill are
-not ported yet (ROADMAP, port queue).
+MoE, SSM and xLSTM blocks are not ported yet (ROADMAP, port queue).
 """
 from __future__ import annotations
 
@@ -73,6 +75,60 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return L.logits(params["embed"], h, cfg)
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+               dtype: torch.dtype = torch.bfloat16) -> Cache:
+    """One (K, V) pair of ``(batch, kv_len, kv_heads, hd)`` zero rows per
+    layer, ``kv_len = min(max_len, window)`` for SWA (a ring).  K/V are
+    stored in bf16 whatever the model dtype, as in the JAX package."""
+    _check_kinds(cfg)
+    kv_len = min(max_len, cfg.window) if cfg.window else max_len
+    shp = (batch, kv_len, cfg.n_kv_heads, cfg.hd)
+    return [(torch.zeros(shp, dtype=dtype, device=device),
+             torch.zeros(shp, dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
+def supports_fused_prefill(cfg: ModelConfig) -> bool:
+    """True when ``prefill`` handles arbitrary (right-padded, any-length)
+    prompts: pure-attention patterns, where causal masking makes end-padding
+    invisible."""
+    return all(k == "attn" for k in cfg.block_pattern)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig, *,
+            length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+    """Cache-writing full-sequence forward: one fused call replaces a
+    prompt-length loop of decode steps.  tokens (B, S) start at position 0;
+    every layer writes the K/V of all S tokens into ``cache`` and attends
+    through the flash kernel.  ``length``: optional (B,) true prompt
+    lengths of a right-padded batch (pad entries are causally invisible).
+    Returns (last-position logits (B, V) f32, cache)."""
+    b, s = tokens.shape
+    if length is not None:
+        if not supports_fused_prefill(cfg):
+            raise NotImplementedError(
+                "padded fused prefill needs a causally-maskable pattern; "
+                f"{cfg.block_pattern} carries recurrent state")
+        ring = cache[0][0].shape[1]
+        if s > ring:
+            # the trailing-window ring write would keep pad K/V and drop
+            # real tokens; unpadded (length=None) overflow is fine
+            raise NotImplementedError(
+                f"right-padded prefill bucket {s} exceeds the cache ring "
+                f"{ring}; cap the pad bucket at the attention window")
+    h = L.embed(params["embed"], tokens, cfg)
+    positions = torch.arange(s, device=tokens.device)
+    for i, p in enumerate(params["layers"]):
+        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], 0, None)
+    h = L.apply_norm(params["final_norm"], h, cfg)
+    if length is None:
+        h_last = h[:, -1]
+    else:
+        idx = torch.as_tensor(length, device=h.device).long().expand(b) - 1
+        h_last = h[torch.arange(b, device=h.device), idx]
+    return L.logits(params["embed"], h_last[:, None], cfg)[:, 0], cache
+
+
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when the paged KV-cache engine can serve this config: pure
     dense attention blocks with full (no sliding-window) attention."""
@@ -117,16 +173,18 @@ def prefill_paged(params: Params, tokens: torch.Tensor, cache: Cache,
 def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Tensor,
                 cfg: ModelConfig, *, block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """One decode step.  token (B,) int; pos (B,) per-row absolute
-    positions; ``block_tables`` (B, P): the paged cache, each row addressing
-    its own page chain.  Returns (logits (B, V) f32, cache)."""
-    if block_tables is None:
-        raise NotImplementedError(
-            "decode_step without block_tables needs the end-aligned cache, which "
-            "is not ported yet (ROADMAP, port queue: the end-aligned engine)")
+    """One decode step.  token (B,) int; pos: a scalar absolute position,
+    or a (B,) tensor of per-row positions (continuous-batching slots advance
+    independently).  Without ``block_tables`` the cache is the end-aligned
+    rows (SWA: a ring, written at ``pos % window``); ``block_tables`` (B, P):
+    the paged cache, each row addressing its own page chain.  Returns
+    (logits (B, V) f32, cache)."""
+    _check_kinds(cfg)
+    pos = torch.as_tensor(pos, device=token.device)
     h = L.embed(params["embed"], token[:, None], cfg)          # (B, 1, d)
-    positions = pos[:, None]
+    positions = pos[None] if pos.dim() == 0 else pos[:, None]
+    cache_pos = pos if cfg.window is None else pos % cfg.window
     for i, p in enumerate(params["layers"]):
-        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], pos, block_tables)
+        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], cache_pos, block_tables)
     h = L.apply_norm(params["final_norm"], h, cfg)
     return L.logits(params["embed"], h, cfg)[:, 0], cache

@@ -1,10 +1,10 @@
-"""Step functions of the paged serving engine, as plain closures.
+"""Step functions of the serving engines, as plain closures.
 
 The JAX package jits these and donates the cache; here they run eagerly and
-write the page arenas in place (the returned cache is the same list).
-Only the paged decode step and the chunked-prefill step are ported; the
-train steps, the fused prefill and the end-aligned decode step are later
-slices (ROADMAP, port queue).
+write the cache in place (the returned cache is the same list).  Ported:
+the fused prefill and the end-aligned decode step, the paged decode step and
+the chunked-prefill step.  The train steps are a later slice (ROADMAP, port
+queue).
 """
 from __future__ import annotations
 
@@ -16,23 +16,48 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 
 
-def make_decode_step(cfg: ModelConfig, *, return_logits: bool = False) -> Callable:
-    """Paged decode step ``(params, tok, cache, pos, block_tables) -> (next,
-    cache)``: greedy int32 tokens by default, or the f32 logits with
-    ``return_logits`` so the scheduler can sample.  (The JAX package's
-    ``paged=True`` step; its end-aligned step is not ported yet.)"""
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """Fused prefill ``(params, batch, cache) -> (last_logits (B, V),
+    cache)``: one cache-writing full-sequence forward per prompt.  ``batch``
+    holds ``tokens`` (B, S) and may hold ``length``, the per-row true prompt
+    lengths of right-padded prompts (pad entries are causally invisible)."""
     if cfg.enc_dec:
-        raise NotImplementedError("paged decode is decoder-only")
+        raise NotImplementedError("enc-dec prefill is not ported (ROADMAP, port queue)")
+
+    @torch.no_grad()
+    def prefill(params, batch, cache):
+        return T.prefill(params, batch["tokens"], cache, cfg, length=batch.get("length"))
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, *, return_logits: bool = False,
+                     paged: bool = False) -> Callable:
+    """Decode step: greedy int32 tokens by default, or the f32 logits with
+    ``return_logits`` so the scheduler can sample.  ``paged`` selects the
+    step's form: ``(params, tok, cache, pos, block_tables)`` over the shared
+    page arena, or, with ``paged=False``, the end-aligned ``(params, tok,
+    cache, pos)`` over per-slot cache rows."""
+    if cfg.enc_dec:
+        raise NotImplementedError("enc-dec decode is not ported (ROADMAP, port queue)")
+
+    def _out(logit):
+        if return_logits:
+            return logit.float()
+        return torch.argmax(logit, dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def decode(params, token, cache, pos):
+        logit, cache = T.decode_step(params, token, cache, pos, cfg)
+        return _out(logit), cache
 
     @torch.no_grad()
     def decode_paged(params, token, cache, pos, block_tables):
         logit, cache = T.decode_step(params, token, cache, pos, cfg,
                                      block_tables=block_tables)
-        if return_logits:
-            return logit.float(), cache
-        return torch.argmax(logit, dim=-1).to(torch.int32), cache
+        return _out(logit), cache
 
-    return decode_paged
+    return decode_paged if paged else decode
 
 
 def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:

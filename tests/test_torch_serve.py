@@ -148,12 +148,15 @@ def test_submit_validates_with_named_limits(tiny):
 
 
 def test_unported_engine_raises_naming_the_roadmap(tiny):
+    """The end-aligned engine is ported; its recurrent per-token prefill
+    fallback (and the recurrent families) is not."""
     _, cfg, _, params = tiny
+    recurrent = cfg.replace(block_pattern=("mamba2",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cfg, params, slots=1, max_len=8)
+        Scheduler(recurrent, params, slots=1, max_len=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.decode_step(params, torch.zeros(1, dtype=torch.int32), [],
-                      torch.zeros(1, dtype=torch.int32), cfg)
+                      torch.zeros(1, dtype=torch.int32), recurrent)
 
 
 def test_sampling_is_seeded_and_top_p_narrows_to_greedy():
@@ -175,5 +178,5 @@ def test_serve_cli_in_process(capsys):
     assert all(len(c.tokens) == 3 for c in out["completions"].values())
     text = capsys.readouterr().out
     assert "tok/s" in text and "peak occupancy" in text
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--reduced"])      # --paged is required
+    with pytest.raises(SystemExit):                       # a named argument error
+        serve.main(["--device", "cpu", "--reduced", "--paged", "--chunk", "0"])
