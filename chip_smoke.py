@@ -8,22 +8,29 @@ error:
 
   1. device   -- the card's name and power limit, torch and CUDA versions;
                  stops when there is no CUDA device;
-  2. build    -- builds every kernel from ``src/repro_torch/kernels/csrc``;
+  2. build    -- builds every kernel from ``src/repro_torch/kernels/csrc``
+                 and prints each kernel function's registers, spills and
+                 static shared memory (``ptxas``);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  timed beside the plain version, one library call and its
                  bound:
                  paged attention at the serving path's shapes (B=4 slots,
                  Hkv=8, rep=3, hd=128, block 16) in bf16 and f32, with a dead
                  row, -1 entries and partial pages;
-                 matmul at 4096^3 in f32 and f16; matmul_acc at the SUMMA 2x4
-                 and pipelined 1x8 block shapes of n = 8192 (in place, no
-                 (m, n) temporary); minplus at 4096^3 with integer weights
-                 and +inf entries (exactly equal);
+                 matmul at 4096^3 in f32 (CUDA cores) and f16 (the wgmma
+                 kernel), f16 also ragged (1000 x 1032 x 520: TMA zero fill,
+                 bounded stores) and with f16 output, and the host cost of
+                 one f16 launch (its TMA maps) beside an f32 one; matmul_acc
+                 at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
+                 (in place, no (m, n) temporary); minplus at 4096^3 with
+                 integer weights and +inf entries (exactly equal);
                  flash attention at the fused prefill's shape (q (1, 24,
                  512, 128), k/v (1, 8, 512, 128), causal), a ragged causal
-                 575, L = 8192 causal and Mixtral's window 4096 with 48/8
-                 heads, in bf16 and f32, and query rows with no key
-                 (exactly 0);
+                 575, L = 8192 causal, Mixtral's window 4096 with 48/8
+                 heads and a head size of 64 at batch 2 (32/8 heads, 937
+                 queries on 1000 keys, window 256), in bf16 (the wgmma
+                 kernel) and f32 (the CUDA-core one), and query rows with
+                 no key (exactly 0);
   4. serve    -- full-width Llama-3.2-3B in bf16, random weights from a
                  seeded generator, through ``Scheduler(paged=True)``: 8
                  requests of 512 prompt and 64 generated tokens, 4 slots,
@@ -39,12 +46,14 @@ error:
   7. matmul ranks -- the paper's distributed matmuls at n = 8192 in f32 on 8
                  gloo rank processes sharing ``cuda:0``: DNS on 2x2x2, SUMMA
                  and Cannon on 2x4, pipelined SUMMA on 1x8 and 2.5D Cannon on
-                 2x2x2 through their ``*_kernel`` entry points, and
-                 ``generic_matmul`` on 8; each against ``torch.matmul`` of the
-                 whole matrices, the kernels' launch counts against the
-                 algorithm's, and per algorithm its wall time, the device
-                 time of its kernel launches and the bytes it staged through
-                 the host;
+                 2x2x2 through their ``*_kernel`` entry points, DNS on 2x2x2
+                 again with f16 inputs and f32 output (the tensor-core
+                 matmul: exactly 8 launches), and ``generic_matmul`` on 8;
+                 each against ``torch.matmul`` of the whole matrices (of the
+                 f16 values widened, for the f16 run), the kernels' launch
+                 counts against the algorithm's, and per algorithm its wall
+                 time, the device time of its kernel launches and the bytes
+                 it staged through the host;
   8. fw ranks -- blocked Floyd-Warshall at n = 8192 on 2x2 ranks with the
                  minplus kernel (24 launches), equal to the plain-version run
                  and to the single-device oracle; the faithful Algorithm 3
@@ -54,9 +63,10 @@ Between 6 and 7, on the same model and request mix as 4:
 
   serve aligned  -- ``Scheduler(paged=False)``, the end-aligned engine: one
                  fused prefill per admission (bucket 16, max_len 576),
-                 through the flash kernel in every layer, so its launch count
-                 must equal non-empty admissions x 28; prints the share of
-                 greedy tokens equal to the paged engine's (not gated);
+                 through the wgmma flash kernel in every layer, so its launch
+                 count must equal non-empty admissions x 28 (and the CUDA-core
+                 flash kernel's 0); prints the share of greedy tokens equal
+                 to the paged engine's (not gated);
   oracle aligned -- one served request re-run teacher-forced through a fused
                  prefill and end-aligned decode steps, against ``forward``.
 
@@ -67,6 +77,8 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -141,16 +153,43 @@ def phase_device() -> str:
     return name
 
 
+def _ptxas_rows(log: str):
+    """(kernel function, registers, spill bytes, static shared memory bytes)
+    for each entry function in an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append((name, int(m.group(1)), spill, int(smem.group(1)) if smem else 0))
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt", "-p"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n,) + r[1:] for n, r in zip(names, rows)]
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     report = _build.build()
     wall = time.perf_counter() - t0
     for name, rep in report.items():
-        usage = [ln.strip() for ln in rep["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {rep['seconds']:.1f}s; " + " | ".join(usage[:4]),
+        rows = _ptxas_rows(rep["ptxas"])
+        print(f"[build] {name}: {rep['seconds']:.1f}s; {len(rows)} kernel function(s)",
               flush=True)
+        for fn, regs, spill, smem in rows:
+            print(f"[build]   {fn}: {regs} registers, {spill} B spilled, {smem} B static "
+                  f"shared memory", flush=True)
     print(f"[build] {len(report)} kernel(s) in {wall:.1f}s", flush=True)
 
 
@@ -258,6 +297,10 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, Lq, Lk, hd, causal, window)
     ("ragged causal", 1, 24, 8, PROMPT + GEN - 1, PROMPT + GEN - 1, 128, True, None),
     ("long causal", 1, 24, 8, 8192, 8192, 128, True, None),
     ("Mixtral window", 1, 48, 8, 8192, 8192, 128, True, 4096),
+    # the D = 64 instantiation (Zamba2-1.2B's head size) with a batch of 2
+    # (the 4-D TMA maps' batch dim), grouped heads, queries end-aligned to
+    # longer keys, ragged lengths and a window
+    ("hd 64 batch 2", 2, 32, 8, 937, 1000, 64, True, 256),
 ]
 
 
@@ -282,6 +325,12 @@ def _library_flash(q, k, v, causal, window):
                                                             enable_gqa=True)
 
 
+# max |kernel - plain| of the CUDA-core kernel over the same cases on the
+# card (PERF.md, PR 8), printed beside this run's
+PR8_FLASH_ERR = {torch.bfloat16: "PR 8's CUDA-core kernel <= 3.9e-3",
+                 torch.float32: "PR 8 <= 2.3e-6"}
+
+
 def phase_flash_kernels() -> dict:
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -293,9 +342,15 @@ def phase_flash_kernels() -> dict:
                         torch.randn((b, hkv, lk, hd), generator=g, device="cuda").to(dtype),
                         torch.randn((b, hkv, lk, hd), generator=g, device="cuda").to(dtype))
             q, k, v = make()
+            route = fa._route(dtype, dtype, hd)
+            before = (fa.launches, fa.launches_wgmma)
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            ran = (fa.launches - before[0], fa.launches_wgmma - before[1])
             want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            if ran != ((0, 1) if route == "wgmma" else (1, 0)):
+                fail(f"flash_attention {label} {dtype}: route {route} but launches "
+                     f"(simt, wgmma) +{ran}")
             tol = KERNEL_TOL[dtype]
             err = (got.float() - want.float()).abs().max().item()
             if not torch.isfinite(got).all():
@@ -320,9 +375,10 @@ def phase_flash_kernels() -> dict:
             bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 4 * hd * pairs, PEAK_OPS_S[dtype])
             rec[(label, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                        library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
-            print(f"[kernels] flash_attention {label} {str(dtype)[6:]} q ({b}, {hq}, {lq}, "
-                  f"{hd}) k/v ({b}, {hkv}, {lk}, {hd}) causal={causal} window={window}: "
-                  f"max|kernel-plain| {err:.3e} (atol=rtol={tol:g}); kernel {ms:.4f} ms, "
+            print(f"[kernels] flash_attention {label} {str(dtype)[6:]} ({route} kernel) q "
+                  f"({b}, {hq}, {lq}, {hd}) k/v ({b}, {hkv}, {lk}, {hd}) causal={causal} "
+                  f"window={window}: max|kernel-plain| {err:.3e} (atol=rtol={tol:g}; "
+                  f"{PR8_FLASH_ERR[dtype]}); kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
                   f"= max({pairs / 1e6:.2f} M live pairs x 4 x {hd} = "
                   f"{4 * hd * pairs / 1e9:.2f} GFLOP / {PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = "
@@ -484,9 +540,9 @@ def phase_serve_aligned(cfg, params, paged_comps):
     sched.reset()
     torch.cuda.reset_peak_memory_stats()
     reqs = make_requests(N_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
-    fa.launches = 0
+    fa.launches = fa.launches_wgmma = 0
     out = sched.run(reqs)
-    launches = fa.launches
+    launches, simt = fa.launches_wgmma, fa.launches
     comps = out["completions"]
     if sorted(comps) != list(range(N_REQ)):
         fail(f"served {sorted(comps)} of {N_REQ} requests")
@@ -495,9 +551,10 @@ def phase_serve_aligned(cfg, params, paged_comps):
             fail(f"request {c.rid}: {len(c.tokens)} tokens, or one out of the vocab")
     admissions = sum(1 for r in reqs if len(r.prompt) > 0)
     want = admissions * cfg.n_layers
-    if out["prefills"] != admissions or launches != want:
-        fail(f"flash_attention launches {launches}, fused prefills {out['prefills']}; want "
-             f"{admissions} non-empty admissions x {cfg.n_layers} layers = {want}")
+    if out["prefills"] != admissions or launches != want or simt != 0:
+        fail(f"flash_attention wgmma launches {launches} (CUDA-core kernel {simt}), fused "
+             f"prefills {out['prefills']}; want {admissions} non-empty admissions x "
+             f"{cfg.n_layers} layers = {want} wgmma launches and none of the other kernel")
     ttft = sorted(c.ttft_s for c in comps.values())
     same = sum(a == b for i in comps for a, b in zip(comps[i].tokens, paged_comps[i].tokens))
     print(f"[serve aligned] {cfg.name} bf16, {N_REQ} req x ({PROMPT} prompt + {GEN} gen), "
@@ -505,7 +562,7 @@ def phase_serve_aligned(cfg, params, paged_comps):
           f"in {out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
           f"decode steps, {out['prefills']} fused prefills, {launches} flash_attention "
-          f"launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"(wgmma) launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"greedy tokens equal to the paged engine's at {same} of {N_REQ * GEN} positions "
           f"({same / (N_REQ * GEN):.3f}, not gated)", flush=True)
     return comps[0], launches
@@ -553,6 +610,7 @@ def phase_oracle_aligned(cfg, params, comp) -> None:
 # the tile kernels of the distributed path (matmul, matmul_acc, minplus)
 TILE_TOL = {torch.float32: (1e-4, 1e-3), torch.float16: (2e-2, 2e-1)}   # rtol, atol
 MINPLUS_OPS_S = PEAK_OPS_S[torch.float32] / 2   # an add or a min is one op, an FMA two
+HOST_LAUNCHES = 500                          # fewer than the launch queue holds
 
 
 def _copies(make, nbytes: int) -> list:
@@ -577,12 +635,17 @@ def phase_tile_kernels() -> dict:
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    # matmul at 4096^3, f32 and f16 in, f32 out
+    # matmul at 4096^3, f32 in (CUDA cores) and f16 in (tensor cores), f32 out
     n = 4096
     for dtype in (torch.float32, torch.float16):
         a, b = rnd(n, n, dtype=dtype), rnd(n, n, dtype=dtype)
+        route = km._route(dtype)
+        key = "matmul_f16_wgmma" if route == "wgmma" else "matmul"
+        before = km.launches[key]
         got, want = km.matmul(a, b), km.matmul_ref(a, b)
         torch.cuda.synchronize()
+        if km.launches[key] != before + 1:
+            fail(f"matmul {dtype}: route {route} did not count a {key} launch")
         rtol, atol = TILE_TOL[dtype]
         err = (got - want).abs().max().item()
         if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=rtol, atol=atol):
@@ -598,12 +661,51 @@ def phase_tile_kernels() -> dict:
         bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * n ** 3, PEAK_OPS_S[dtype])
         rec[("matmul", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
-        print(f"[kernels] matmul {str(dtype)[6:]} {n}^3: max|kernel-plain| {err:.3e} "
-              f"(rtol {rtol:g}, atol {atol:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        print(f"[kernels] matmul {str(dtype)[6:]} {n}^3 ({route} kernel): max|kernel-plain| "
+              f"{err:.3e} (rtol {rtol:g}, atol {atol:g}); kernel {ms:.3f} ms "
+              f"({2 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
               f"torch.matmul {library_ms:.3f} ms{' (f16 out, tensor cores)' if esz == 2 else ''}; "
               f"bound {bound_ms:.3f} ms = max(2*{n}^3 = {2 * n ** 3 / 1e9:.1f} GFLOP / "
               f"{PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = {ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / "
               f"{PEAK_BYTES_S / 1e12:g} TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+
+    # f16 in: a ragged shape (TMA zero fill past M, N and K; bounded stores)
+    # and f16 out, against the plain version
+    for (m, k, nn), out_dtype in (((1000, 1032, 520), torch.float32),
+                                  ((1000, 1032, 520), torch.float16),
+                                  ((n, n, n), torch.float16)):
+        a, b = rnd(m, k, dtype=torch.float16), rnd(k, nn, dtype=torch.float16)
+        got = km.matmul(a, b, out_dtype=out_dtype)
+        want = km.matmul_ref(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        rtol, atol = TILE_TOL[torch.float16]
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (got.dtype == out_dtype and torch.isfinite(got).all()
+              and torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
+        print(f"[kernels] matmul f16 ({m}x{k})x({k}x{nn}) -> {str(out_dtype)[6:]} (wgmma "
+              f"kernel): max|kernel-plain| {err:.3e} (rtol {rtol:g}, atol {atol:g})",
+              flush=True)
+        if not ok:
+            fail(f"matmul f16 ({m}, {k}, {nn}) -> {out_dtype}: max |kernel - plain| = "
+                 f"{err:.3e} beyond rtol {rtol:g}, atol {atol:g} (or wrong dtype)")
+
+    # host cost of one launch through the wrapper: the f16 route encodes two
+    # TMA maps in its C entry on every launch, the f32 route none
+    host_us = {}
+    for dtype in (torch.float16, torch.float32):
+        a, b = rnd(256, 256, dtype=dtype), rnd(256, 256, dtype=dtype)
+        for _ in range(20):
+            km.matmul(a, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(HOST_LAUNCHES):
+            km.matmul(a, b)
+        host_us[dtype] = (time.perf_counter() - t1) / HOST_LAUNCHES * 1e6
+        torch.cuda.synchronize()
+    print(f"[kernels] matmul host time a launch (256^3, {HOST_LAUNCHES} launches, wrapper "
+          f"checks included): f16 (TMA maps encoded in the C entry) "
+          f"{host_us[torch.float16]:.1f} us, f32 (no maps) {host_us[torch.float32]:.1f} us",
+          flush=True)
 
     # matmul_acc at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
     for m, k, nn in ((4096, 2048, 2048), (8192, 1024, 1024)):
@@ -677,10 +779,15 @@ N_RANKS_MM, N_MM, N_FW, N_FW_FAITHFUL = 8, 8192, 8192, 2048
 # each is within about sqrt(n) * 2^-24 of the exact product, so they are
 # within twice that of each other: 2 * sqrt(8192) * 2^-24 = 1.08e-5
 MM_REL_BOUND = 2 * N_MM ** 0.5 * 2.0 ** -24
+# the same for f16 inputs (products exact in f32) summed by the tensor cores,
+# whose f32 adds truncate (a unit roundoff of 2^-23, twice round-to-nearest's),
+# against torch.matmul of the widened values: sqrt(n) * (2^-23 + 2^-24)
+MM_F16_REL_BOUND = N_MM ** 0.5 * (2.0 ** -23 + 2.0 ** -24)
 
 
 def _mm_runs(C):
-    """(name, entry point, mesh shape, axes, body, specs, kernel, launches)."""
+    """(name, entry point, mesh shape, axes, body, specs, kernel, launches,
+    input dtype)."""
     from repro_torch.core import summa as S, summa_pipelined as SP
     D = importlib.import_module("repro_torch.core.dns_matmul")   # the name is also a function
     from repro_torch.core.mesh import P
@@ -689,17 +796,22 @@ def _mm_runs(C):
     return [
         ("dns_matmul_kernel", C.dns_matmul_kernel, (2, 2, 2), xyz,
          lambda a, b: D.dns_body(a, b, local_matmul=ops.matmul), D.DNS_SPECS[0],
-         "matmul", 8),
+         "matmul", 8, torch.float32),
+        ("dns_matmul_kernel f16", C.dns_matmul_kernel, (2, 2, 2), xyz,
+         lambda a, b: D.dns_body(a, b, local_matmul=ops.matmul), D.DNS_SPECS[0],
+         "matmul_f16_wgmma", 8, torch.float16),
         ("summa_matmul_kernel", C.summa_matmul_kernel, (2, 4), ("x", "y"),
-         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32),
+         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32,
+         torch.float32),
         ("cannon_matmul_kernel", C.cannon_matmul_kernel, (2, 4), ("x", "y"),
-         lambda a, b: S.cannon_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32),
+         lambda a, b: S.cannon_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32,
+         torch.float32),
         ("summa_matmul_pipelined_kernel", C.summa_matmul_pipelined_kernel, (1, 8), ("x", "y"),
          lambda a, b: SP.summa_pipelined_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
-         "matmul_acc", 64),
+         "matmul_acc", 64, torch.float32),
         ("cannon_matmul_25d_kernel", C.cannon_matmul_25d_kernel, (2, 2, 2), xyz,
          lambda a, b: SP.cannon_25d_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
-         "matmul_acc", 8),
+         "matmul_acc", 8, torch.float32),
     ]
 
 
@@ -717,18 +829,24 @@ def rank_matmul(device, n: int, seed: int) -> dict:
     from repro_torch.kernels import matmul as km
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=device).manual_seed(seed)
-    A = torch.randn((n, n), generator=g, device=device)
-    B = torch.randn((n, n), generator=g, device=device)
+    inputs = {torch.float32: (torch.randn((n, n), generator=g, device=device),
+                              torch.randn((n, n), generator=g, device=device))}
+    inputs[torch.float16] = tuple(x.half() for x in inputs[torch.float32])
     rank = dist.get_rank()
-    want = torch.matmul(A, B) if rank == 0 else None
+    wants = {dt: torch.matmul(A.float(), B.float()) if rank == 0 else None
+             for dt, (A, B) in inputs.items()}
+    A, B = inputs[torch.float32]
+    want = wants[torch.float32]
     out = {}
     meshes = {}
-    for name, entry, shape, axes, body, specs, kernel, _ in _mm_runs(C):
+    for name, entry, shape, axes, body, specs, kernel, _, dtype in _mm_runs(C):
         mesh = meshes.get(shape) or meshes.setdefault(shape, C.ProcessMesh(shape, axes))
+        A, B = inputs[dtype]
+        want = wants[dtype]
         # the main path, counted
         torch.cuda.synchronize()
         dist.barrier()
-        km.launches = {"matmul": 0, "matmul_acc": 0}
+        km.launches = dict.fromkeys(km.launches, 0)
         t0 = time.perf_counter()
         got = entry(A, B, mesh)
         torch.cuda.synchronize()
@@ -753,6 +871,8 @@ def rank_matmul(device, n: int, seed: int) -> dict:
         out[name] = dict(entry_s=entry_s, body_s=body_s, kernel_ms=kernel_ms,
                          staged=mesh.staged_bytes, launches=launches, rel=rel,
                          finite=finite)
+    A, B = inputs[torch.float32]
+    want = wants[torch.float32]
     mesh8 = C.ProcessMesh((8,), ("z",))
     dist.barrier()
     mesh8.staged_bytes = 0
@@ -850,26 +970,26 @@ def phase_distributed() -> dict:
     """Returns the launch counts of the main-path runs, summed over ranks."""
     from repro_torch import core as C
     from repro_torch.core.mesh import launch
+    from repro_torch.kernels import matmul as km
     _check_compute_mode()
-    counts = {"matmul": 0, "matmul_acc": 0, "minplus": 0}
+    counts = dict.fromkeys(list(km.launches) + ["minplus"], 0)
     t0 = time.perf_counter()
     res = launch(N_RANKS_MM, rank_matmul, N_MM, 3, device="cuda", timeout=900)
-    for name, _, shape, _, _, _, kernel, want_launches in _mm_runs(C) + \
-            [("generic_matmul", None, (8,), None, None, None, None, 0)]:
+    for name, _, shape, _, _, _, kernel, want_launches, dtype in _mm_runs(C) + \
+            [("generic_matmul", None, (8,), None, None, None, None, 0, torch.float32)]:
         per_rank = [r[name] for r in res]
         rel = per_rank[0]["rel"]
-        got = {k: sum(r["launches"].get(k, 0) for r in per_rank)
-               for k in ("matmul", "matmul_acc")}
+        bound = MM_F16_REL_BOUND if dtype == torch.float16 else MM_REL_BOUND
+        got = {k: sum(r["launches"].get(k, 0) for r in per_rank) for k in km.launches}
         _print_algo(f"{name} {'x'.join(map(str, shape))}", per_rank,
                     f"; |C - torch.matmul| / |torch.matmul| = {rel:.3e} (bound "
-                    f"{MM_REL_BOUND:.3e}); launches {got}")
-        if not all(r["finite"] for r in per_rank) or not rel <= MM_REL_BOUND:
-            fail(f"{name}: normwise relative error {rel:.3e} beyond {MM_REL_BOUND:.3e} "
+                    f"{bound:.3e}); launches {got}")
+        if not all(r["finite"] for r in per_rank) or not rel <= bound:
+            fail(f"{name}: normwise relative error {rel:.3e} beyond {bound:.3e} "
                  f"(or a non-finite entry)")
         if kernel is not None:
-            other = "matmul_acc" if kernel == "matmul" else "matmul"
-            if got[kernel] != want_launches or got[other] != 0:
-                fail(f"{name}: launches {got}, want {kernel} x {want_launches}")
+            if got != {k: (want_launches if k == kernel else 0) for k in km.launches}:
+                fail(f"{name}: launches {got}, want {kernel} x {want_launches} and no other")
             counts[kernel] += got[kernel]
     print(f"[ranks] matmul phase: {N_RANKS_MM} ranks, n = {N_MM}: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -945,6 +1065,8 @@ def main() -> None:
                 launches, rec[torch.bfloat16]),
         _record("matmul", csrc + "matmul.cu", ref + "matmul.py:82", counts["matmul"],
                 tile[("matmul", torch.float32)]),
+        _record("matmul_f16", csrc + "matmul.cu", ref + "matmul.py:82",
+                counts["matmul_f16_wgmma"], tile[("matmul", torch.float16)]),
         _record("matmul_acc", csrc + "matmul.cu", ref + "matmul.py:48", counts["matmul_acc"],
                 tile[("matmul_acc", (4096, 2048, 2048))]),
         _record("minplus", csrc + "minplus.cu", ref + "minplus.py:44", counts["minplus"],

@@ -1,5 +1,6 @@
-// The CUDA-core (SIMT) tile skeleton shared by the matmul, matmul_acc and
-// (min, +) kernels for Hopper (sm_90a).
+// The CUDA-core (SIMT) tile skeleton shared by the f32 matmul, the
+// matmul_acc and the (min, +) kernels for Hopper (sm_90a).  f16 matmul runs
+// on the tensor cores instead (matmul.cu, hopper_tile.cuh).
 //
 // C = A (x) B for row-major A (M, K) and B (K, N) with unit inner stride and
 // row strides lda, ldb, ldc (so a column panel of a block is read in place).
@@ -8,9 +9,10 @@
 //   kAccumulate  acc = C,    acc += a * b,          C = acc   (matmul_acc)
 //   kMinPlus     acc = +inf, acc = min(acc, a + b), C = acc   (minplus)
 // Every product and sum is IEEE f32 on the CUDA cores: no TF32, no tensor
-// cores (an f16 input is widened to f32 as it is staged, and products of f16
-// values are exact in f32).  The (min, +) semiring has no tensor-core path at
-// all, and Hopper's DPX min/add instructions cover only integers.
+// cores (an f16 input of matmul_acc is widened to f32 as it is staged, and
+// products of f16 values are exact in f32).  The (min, +) semiring has no
+// tensor-core path at all, and Hopper's DPX min/add instructions cover only
+// integers.
 //
 // Design (simple and right first): a 128 x 128 output tile per block of 256
 // threads, each thread owning an 8 x 8 register micro-tile (rows ty*4+i and
@@ -21,7 +23,10 @@
 // memory into registers while the current one is multiplied, then stored to
 // the other buffer, with one barrier per slice.  Every load is bounds-checked
 // and pads with the epilogue's identity (0, or +inf for min-plus), so
-// partial tiles are right.  wgmma, TMA and clusters are later work.
+// partial tiles are right.  It stays on the CUDA cores because f32 has to
+// stay IEEE f32 (the reference's 1e-4 bound rules out TF32) and (min, +)
+// has no tensor-core form; matmul_acc's f16 inputs are queued for the
+// tensor-core tile.
 
 #pragma once
 

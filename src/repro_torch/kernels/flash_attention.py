@@ -1,11 +1,20 @@
-"""Flash attention: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrapper and its plain version.
 
 ``flash_attention`` is the model's full-sequence attention (``forward`` and
 the fused prefill of the end-aligned engine, ``models/layers.py``).  For
-tensors on the card it launches the hand-written Hopper kernel in
+tensors on the card it launches a hand-written Hopper kernel of
 ``csrc/flash_attention.cu`` or raises; for tensors on the CPU it runs
 ``flash_attention_ref``, the plain PyTorch version.  Nothing else selects
-the path, and no failure falls back to the plain version.
+the path, and no failure falls back to another kernel or to the plain
+version.
+
+Which kernel, by dtypes and head size alone (``_route``):
+  bf16 q, k and v with hd 64 or 128 -> "wgmma": the tensor-core kernel
+      (TMA-fed K/V tiles, wgmma for Q.K^T and for P.V with P split into two
+      bf16 terms, so P.V keeps the reference's f32 arithmetic); counted in
+      ``launches_wgmma``;
+  everything else (f32/f32, f32/bf16, other bf16 head sizes) -> "simt":
+      IEEE f32 on the CUDA cores; counted in ``launches``.
 
 Layouts are the JAX package's: q (B, Hq, Lq, D); k, v (B, Hkv, Lk, D) with
 Hq % Hkv == 0 (query head h reads kv head h // (Hq / Hkv)); queries aligned
@@ -15,13 +24,17 @@ contiguous), so the model passes transposed views of its (B, L, H, D)
 tensors without copying them.  The output has q's dtype; the kernel's is a
 (B, Hq, Lq, D) view of a (B, Lq, Hq, D) tensor, the model's own layout.
 
-Both versions compute what ``kernels/ref.py::flash_attention`` computes: f32
-scores and softmax, P.V in f32, one cast to q's dtype at the end.  The
-kernel scales q in f32 before the product, as the Pallas kernel does, where
-the reference scales the f32 scores; in f32 the two differ in summation
-order only (1e-5), in bf16 only by that and the one output rounding.  A
-query row that sees no key gives 0 in both, row by row (the reference gives
-NaN there).
+The kernels and the plain version compute what
+``kernels/ref.py::flash_attention`` computes: f32 scores and softmax, P.V in
+f32, one cast to q's dtype at the end.  The CUDA-core kernel scales q in f32
+before the product, as the Pallas kernel does; the tensor-core kernel scales
+the f32 scores, as the reference does (never a bf16-rounded q * scale), and
+adds P.V as bf16(P).V + bf16(P - bf16(P)).V, which keeps P to about 2^-16
+of itself (shown on a PyTorch model of that arithmetic; the kernel's bf16
+output rounds away the difference from a single bf16 P).  In f32 they differ from the reference in summation order only
+(1e-5), in bf16 by that, the split's remainder and the one output rounding.
+A query row that sees no key gives 0 in all of them, row by row (the
+reference gives NaN there).
 """
 from __future__ import annotations
 
@@ -41,7 +54,8 @@ _BQ = _BKV = 64
 _MAX_SMEM = 227 * 1024
 _REF_SCORE_ELEMS = 2 ** 28     # the plain version's score block: 1 GiB of f32
 
-launches = 0          # kernel launches; ``chip_smoke.py`` resets and reads it
+launches = 0          # CUDA-core kernel launches; ``chip_smoke.py`` resets and reads it
+launches_wgmma = 0    # tensor-core kernel launches, likewise
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,6 +106,14 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
+def _route(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int) -> str:
+    """The kernel that ``flash_attention`` launches: "wgmma" (tensor cores)
+    for bf16 q and k/v with a head size of 64 or 128, else "simt"."""
+    if q_dtype == kv_dtype == torch.bfloat16 and hd in (64, 128):
+        return "wgmma"
+    return "simt"
+
+
 def _smem_bytes(hd: int) -> int:
     dmax = 64 if hd <= 64 else 128 if hd <= 128 else 256
     return 4 * (dmax * _BQ + 2 * dmax * _BKV + _BQ * (_BKV + 4))
@@ -100,9 +122,9 @@ def _smem_bytes(hd: int) -> int:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention with queries aligned to the end of the keys: the CUDA
-    kernel for tensors on the card, the plain version on the CPU."""
-    global launches
+    """Attention with queries aligned to the end of the keys: the route's
+    CUDA kernel for tensors on the card, the plain version on the CPU."""
+    global launches, launches_wgmma
     _check(q, k, v, window)
     tensors = (q, k, v)
     if all(t.device.type == "cpu" for t in tensors):
@@ -125,28 +147,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"the kernel takes a contiguous last dim; got strides "
                              f"{t.stride()} for shape {tuple(t.shape)}")
-        # 8-element chunks are read as 16-byte vectors
+        # 8-element chunks are read as 16-byte vectors, and TMA wants
+        # 16-byte bases and strides
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"the kernel takes 16-byte aligned tensors whose batch, head "
                              f"and position strides are multiples of 8 elements; got "
                              f"strides {t.stride()} at address {t.data_ptr():#x}")
         strides += list(t.stride()[:3])
+    wgmma = _route(q.dtype, k.dtype, hd) == "wgmma"
     lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
+    fn = lib.repro_flash_attention_wgmma if wgmma else lib.repro_flash_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+        fn.argtypes = [ctypes.c_int] * (0 if wgmma else 2) + [ctypes.c_void_p] * 5 + \
             [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     c_strides = (ctypes.c_longlong * 12)(*strides)
-    err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), out.data_ptr(), ctypes.addressof(c_strides), b, hq, hkv, lq, lk,
-             hd, int(causal), 0 if window is None else int(window),
+    codes = () if wgmma else (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype])
+    err = fn(*codes, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             ctypes.addressof(c_strides), b, hq, hkv, lq, lk, hd, int(causal),
+             0 if window is None else int(window),
              scale if scale is not None else 1.0 / math.sqrt(hd),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"{lib.repro_cuda_error_string(err).decode()} ({err})")
-    launches += 1
+        raise RuntimeError(f"flash_attention {'wgmma' if wgmma else 'simt'} kernel launch "
+                           f"failed: {lib.repro_cuda_error_string(err).decode()} ({err})")
+    if wgmma:
+        launches_wgmma += 1
+    else:
+        launches += 1
     return out

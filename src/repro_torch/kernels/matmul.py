@@ -2,14 +2,24 @@
 
 ``matmul(a, b)`` and ``matmul_acc(a, b, c)`` are the local block products of
 the distributed matmul path (``core/dns_matmul.py``, ``core/summa.py``,
-``core/summa_pipelined.py``).  For tensors on the card they launch the
-hand-written Hopper kernels in ``csrc/matmul.cu`` or raise; for tensors on
+``core/summa_pipelined.py``).  For tensors on the card they launch a
+hand-written Hopper kernel of ``csrc/matmul.cu`` or raise; for tensors on
 the CPU they run ``matmul_ref`` / ``matmul_acc_ref``.  Nothing else selects
-the path, and no failure falls back to the plain version.
+the path, and no failure falls back to another kernel or to the plain
+version.
 
-Both accumulate in IEEE f32 (no TF32), as the Pallas kernels do with
-``preferred_element_type=f32``; f16 inputs are widened, and products of f16
-values are exact in f32.  The plain versions rely on PyTorch's default of
+Which kernel, by the input dtype alone (``_route``):
+  f16 ``matmul``  -> "wgmma": the tensor-core kernel (TMA-fed wgmma tiles,
+                     f32 accumulator); its inputs must meet TMA's alignment
+                     (``check_tma_alignment``), else the wrapper raises;
+  f32 ``matmul``  -> "simt": IEEE f32 on the CUDA cores (no TF32);
+  ``matmul_acc``  -> the SIMT kernel for f32 and f16 inputs alike.
+``launches`` counts each kernel apart: "matmul" (SIMT), "matmul_f16_wgmma"
+and "matmul_acc".
+
+All accumulate in f32, as the Pallas kernels do with
+``preferred_element_type=f32``; products of f16 values are exact in f32.
+The plain versions rely on PyTorch's default of
 ``torch.backends.cuda.matmul.allow_tf32 = False`` for tensors on the card.
 """
 from __future__ import annotations
@@ -22,7 +32,8 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1}
 
-launches = {"matmul": 0, "matmul_acc": 0}   # kernel launches; chip_smoke.py reads them
+# kernel launches by kernel; chip_smoke.py resets and reads them
+launches = {"matmul": 0, "matmul_f16_wgmma": 0, "matmul_acc": 0}
 # None, or a list that each tile-kernel launch (matmul, matmul_acc, minplus)
 # appends its (name, start, end) CUDA events to; chip_smoke.py sums their
 # device time over a run
@@ -38,6 +49,27 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
 def matmul_acc_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """C += A @ B in c's storage; returns c."""
     return c.addmm_(a.float(), b.float())
+
+
+def _route(dtype: torch.dtype) -> str:
+    """The kernel that ``matmul`` launches for inputs of ``dtype``: "wgmma"
+    (tensor cores) for f16, "simt" (CUDA cores, IEEE f32) for f32."""
+    return "wgmma" if dtype == torch.float16 else "simt"
+
+
+def check_tma_alignment(name: str, shape, strides, address: int, element_size: int) -> None:
+    """Raise unless a row-major matrix (``shape``, element ``strides``, base
+    ``address``) can be read by TMA: a 16-byte aligned base and a row stride
+    of a multiple of 16 bytes (a matrix of one row has no row stride to
+    speak of)."""
+    rows = shape[0]
+    row_bytes = strides[0] * element_size
+    if address % 16 or (rows > 1 and row_bytes % 16):
+        raise ValueError(
+            f"the {name} tensor-core kernel reads its inputs with TMA, which needs a "
+            f"16-byte aligned base and a row stride of a multiple of 16 bytes; got a "
+            f"{tuple(shape)} view at address {address:#x} with row stride {row_bytes} B "
+            f"(a copy with .contiguous() on a width that is a multiple of 8 meets it)")
 
 
 def _check(a, b, c=None) -> None:
@@ -96,7 +128,8 @@ def launch_tile(lib_name: str, symbol: str, name: str, codes, a, b, c) -> None:
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """C = A @ B, f32 accumulation, cast to ``out_dtype`` (f32 or f16): the
-    CUDA kernel for tensors on the card, the plain version on the CPU."""
+    route's CUDA kernel for tensors on the card, the plain version on the
+    CPU."""
     _check(a, b)
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype or out_dtype not in _DTYPE_CODE:
         raise TypeError(f"matmul takes f32 or f16 A and B alike and an f32 or f16 "
@@ -104,9 +137,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     if not _on_card("matmul", a, b):
         return matmul_ref(a, b, out_dtype=out_dtype)
     c = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype, device=a.device)
-    launch_tile("matmul", "repro_matmul", "matmul",
-                (_DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype]), a, b, c)
-    launches["matmul"] += 1
+    if _route(a.dtype) == "wgmma":
+        for t in (a, b):
+            check_tma_alignment("matmul", t.shape, t.stride(), t.data_ptr(), t.element_size())
+        launch_tile("matmul", "repro_matmul_f16", "matmul_f16_wgmma",
+                    (_DTYPE_CODE[out_dtype],), a, b, c)
+        launches["matmul_f16_wgmma"] += 1
+    else:
+        launch_tile("matmul", "repro_matmul", "matmul",
+                    (_DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype]), a, b, c)
+        launches["matmul"] += 1
     return c
 
 

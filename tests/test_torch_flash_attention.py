@@ -117,9 +117,11 @@ def test_strided_model_layout_view_equals_contiguous_copy():
 
 def test_wrapper_raises_and_counts_only_kernel_launches():
     q, k, v = _t(*_qkv(1, 2, 1, 8, 8, 16))
-    before = fa.launches
+    before = (fa.launches, fa.launches_wgmma)
     fa.flash_attention(q, k, v)
-    assert fa.launches == before                  # the CPU runs the plain version
+    # bf16 with hd 64, the tensor-core route's inputs, on the CPU
+    fa.flash_attention(*_t(*_qkv(1, 2, 1, 8, 8, 64), dtype=torch.bfloat16))
+    assert (fa.launches, fa.launches_wgmma) == before   # the CPU runs the plain version
     with pytest.raises(ValueError, match="all on the CPU or all on one CUDA"):
         fa.flash_attention(q, k.to("meta"), v)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
@@ -128,3 +130,75 @@ def test_wrapper_raises_and_counts_only_kernel_launches():
         fa.flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, k, v, window=0)
+
+
+def _tensor_core_arithmetic(q, k, v, *, causal, window, split=True):
+    """The tensor-core kernel's arithmetic in PyTorch, on f32 tensors that
+    hold bf16 values: 64-key tiles; f32 scores times scale * log2(e) (the
+    scale is never folded into a bf16 q); the -inf mask with the no-key
+    guard; exp2 online softmax in f32; and P.V as bf16(P).V + bf16(P -
+    bf16(P)).V accumulated in f32 (``split=False``: a single bf16 P).  The
+    row sum comes from the f32 P.  Returns f32, before the output cast."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    kk, vv = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    scale2 = torch.tensor((1.0 / np.sqrt(d)) * np.log2(np.e), dtype=torch.float32)
+    qpos = torch.arange(lq)[:, None] + (lk - lq)
+    m = torch.full((b, hq, lq, 1), -np.inf)
+    l = torch.zeros((b, hq, lq, 1))
+    o = torch.zeros((b, hq, lq, d))
+    for kb in range(0, lk, 64):
+        ke = min(lk, kb + 64)
+        x = torch.einsum("bhqd,bhkd->bhqk", q, kk[:, :, kb:ke]) * scale2
+        kpos = torch.arange(kb, ke)[None, :]
+        ok = torch.ones((lq, ke - kb), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        x = x.masked_fill(~ok, -np.inf)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == -np.inf, torch.zeros(()), m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(x - m_use)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        p_hi = p.to(torch.bfloat16).float()
+        vt = vv[:, :, kb:ke]
+        o = o * alpha + p_hi @ vt
+        if split:
+            o = o + (p - p_hi).to(torch.bfloat16).float() @ vt
+    return torch.where(l == 0, torch.zeros(()), o / torch.where(l == 0, torch.ones(()), l))
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d,causal,window", [
+    (1, 4, 2, 200, 200, 64, True, None),       # GQA causal, ragged last tile
+    (1, 2, 1, 130, 130, 128, True, 50),        # hd 128, sliding window
+    (2, 2, 2, 96, 96, 64, False, None),        # bidirectional
+])
+def test_split_pv_keeps_reference_arithmetic(b, hq, hkv, lq, lk, d, causal, window):
+    """On bf16 values, the tensor-core kernel's split P.V agrees with JAX's
+    ``ref.flash_attention`` (f32 P.V) at the f32 tolerance of 1e-5; a single
+    bf16 P does not: it rounds P to 2^-8 of itself, the split to 2^-16."""
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+               for a in _qkv(b, hq, hkv, lq, lk, d, seed=5))
+    want = np.asarray(jref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           causal=causal, window=window))
+    tq, tk, tv = _t(q, k, v)
+    got = _tensor_core_arithmetic(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    single = _tensor_core_arithmetic(tq, tk, tv, causal=causal, window=window, split=False)
+    assert not np.allclose(single.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert np.abs(single.numpy() - want).max() > 10 * np.abs(got.numpy() - want).max()
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [8, 32, 64, 96, 128, 256])
+def test_route_by_dtypes_and_head_size(q_dtype, kv_dtype, hd):
+    """bf16 q and k/v with hd 64 or 128 go to the tensor-core kernel, every
+    other pair to the CUDA-core one."""
+    want = ("wgmma" if q_dtype == kv_dtype == torch.bfloat16 and hd in (64, 128)
+            else "simt")
+    assert fa._route(q_dtype, kv_dtype, hd) == want

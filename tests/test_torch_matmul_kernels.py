@@ -123,6 +123,12 @@ def test_minplus_propagates_nan_as_jnp_min_does():
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.ones((4, 4))
+    before = dict(km.launches)
+    ops.matmul(x.half(), x.half())                     # the tensor-core route's inputs
+    ops.matmul(x, x)
+    ops.matmul_acc(x.half(), x.half(), x.clone())
+    assert km.launches == before                       # the CPU runs the plain versions
+    assert set(km.launches) == {"matmul", "matmul_f16_wgmma", "matmul_acc"}
     with pytest.raises(ValueError):
         ops.matmul(x, torch.ones((5, 4)))
     with pytest.raises(TypeError):
@@ -133,3 +139,44 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ops.minplus(x.half(), x.half())
     with pytest.raises(ValueError):          # neither all on the CPU nor on one card
         km.matmul(x.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError):
+        km.matmul(x.half().to("meta"), x.half().to("meta"))
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float16, "wgmma"), (torch.float32, "simt")])
+def test_route_by_dtype(dtype, want):
+    """f16 matmul goes to the tensor-core kernel, f32 stays on the CUDA cores
+    (IEEE f32, no TF32)."""
+    assert km._route(dtype) == want
+
+
+@pytest.mark.parametrize("shape,strides,address,ok", [
+    ((64, 64), (64, 1), 0x1000, True),       # contiguous, 128-byte rows
+    ((1000, 520), (520, 1), 0x7f00, True),   # the ragged case: 1040-byte rows
+    ((64, 63), (64, 1), 0x1000, True),       # a column panel of a wider matrix
+    ((1, 7), (7, 1), 0x1000, True),          # one row: no row stride to meet
+    ((64, 63), (64, 1), 0x1002, False),      # x[:, 1:] of a 16-byte aligned matrix
+    ((64, 12), (12, 1), 0x1000, False),      # 24-byte rows
+    ((8, 1), (1, 1), 0x1000, False),         # K = 1: 2-byte rows
+])
+def test_tma_alignment_check(shape, strides, address, ok):
+    """TMA reads a matrix whose base is 16-byte aligned and whose row stride
+    is a multiple of 16 bytes; the f16 route raises on anything else."""
+    if ok:
+        km.check_tma_alignment("matmul", shape, strides, address, 2)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            km.check_tma_alignment("matmul", shape, strides, address, 2)
+
+
+def test_tma_alignment_of_views():
+    """The same check on real f16 views: a slice one column in is
+    misaligned, a column panel at a multiple of 8 columns is not."""
+    blk = torch.zeros((16, 64), dtype=torch.float16)
+
+    def check(t):
+        km.check_tma_alignment("matmul", t.shape, t.stride(), t.data_ptr(), t.element_size())
+
+    check(blk[:, 8:40])
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        check(blk[:, 1:])
