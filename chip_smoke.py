@@ -14,16 +14,24 @@ error:
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  timed beside the plain version, one library call and its
                  bound:
-                 paged attention at the serving path's shapes (B=4 slots,
-                 Hkv=8, rep=3, hd=128, block 16) in bf16 and f32, with a dead
-                 row, -1 entries and partial pages;
+                 paged attention (split-KV) in bf16 and f32 at the serving
+                 path's shape (B=4 slots, Hkv=8, rep=3, hd=128, block 16,
+                 36-page tables), at B=1 with an 8192-token context and at
+                 B=64 rows of up to 576 tokens (one split), with dead rows,
+                 -1 entries and partial pages; per shape the split count,
+                 and the split and combine kernels' device times from a
+                 profiler trace;
                  matmul at 4096^3 in f32 (CUDA cores) and f16 (the wgmma
                  kernel), f16 also ragged (1000 x 1032 x 520: TMA zero fill,
                  bounded stores) and with f16 output, and the host cost of
-                 one f16 launch (its TMA maps) beside an f32 one; matmul_acc
-                 at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
-                 (in place, no (m, n) temporary); minplus at 4096^3 with
-                 integer weights and +inf entries (exactly equal);
+                 one f16 launch (its TMA maps) beside an f32 one; f32
+                 matmul_acc (the TMA-fed CUDA-core tile) ragged (1000 x 1032
+                 x 520) and on a column panel (lda > k), then at the SUMMA
+                 2x4, pipelined 1x8 and 2.5D 2x2x2 block shapes of n = 8192
+                 (in place, no (m, n) temporary), and with f16 inputs (the
+                 SIMT tile) against c.addmm_ of the widened inputs; minplus
+                 at 4096^3 with integer weights and +inf entries (exactly
+                 equal);
                  flash attention at the fused prefill's shape (q (1, 24,
                  512, 128), k/v (1, 8, 512, 128), causal), a ragged causal
                  575, L = 8192 causal, Mixtral's window 4096 with 48/8
@@ -194,29 +202,46 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------------------
-def _paged_case(dtype, seed=0):
-    """The serving path's decode shapes: 4 slots, Hkv=8, rep=3, hd=128,
-    block 16, a 36-page table (576 tokens) over a 144-block pool.  Row 0 is
-    full, row 1 ends mid-page and has a dead entry below its length, row 2
-    is dead (a parked slot), row 3 holds 33 tokens."""
-    b, hkv, rep, hd, blk = SLOTS, 8, 3, 128, BLOCK
-    pages = -(-(PROMPT + GEN) // blk)
+# (label, B, table pages P, lengths, dead rows, dead entries (row, page)
+# below the length): the serving path's decode shape (4 slots, a 36-page
+# table of 576 tokens over a 144-block pool: row 0 full, row 1 ending
+# mid-page with a dead entry, row 2 dead (a parked slot), row 3 of 33
+# tokens); one request of an 8192-token context, where the splits carry
+# the work (partial last page, a dead entry); and 64 rows of up to 576
+# tokens, where B * Hkv fills the card with one split
+_SERVE_PAGES = -(-(PROMPT + GEN) // BLOCK)
+PAGED_CASES = [
+    ("serve", SLOTS, _SERVE_PAGES,
+     [_SERVE_PAGES * BLOCK, _SERVE_PAGES * BLOCK // 2 + 12, 100, 2 * BLOCK + 1],
+     (2,), ((1, 5),)),
+    ("long context", 1, 8192 // BLOCK, [8192 - 5], (), ((0, 100),)),
+    ("batch 64", 64, _SERVE_PAGES,
+     [_SERVE_PAGES * BLOCK, 300] + list(np.random.RandomState(7).randint(
+         1, _SERVE_PAGES * BLOCK + 1, size=62)), (2, 40), ((1, 5), (9, 0))),
+]
+
+
+def _paged_case(dtype, b, pages, lengths, dead_rows, holes, seed=0):
+    """Random q and arenas (Hkv=8, rep=3, hd=128, block 16) over a pool of
+    B * P blocks; each live row's chain takes fresh blocks, the rest of its
+    table is -1."""
+    hkv, rep, hd, blk = 8, 3, 128, BLOCK
     n_blocks = b * pages
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, hkv, rep, hd), generator=g, device="cuda").to(dtype)
     k = torch.randn((n_blocks, blk, hkv, hd), generator=g, device="cuda").to(dtype)
     v = torch.randn((n_blocks, blk, hkv, hd), generator=g, device="cuda").to(dtype)
-    lengths = [pages * blk, pages * blk // 2 + 12, 100, 2 * blk + 1]
     perm = np.random.RandomState(seed).permutation(n_blocks)
     tables = np.full((b, pages), -1, np.int32)
     used = 0
     for row, ln in enumerate(lengths):
-        if row == 2:
-            continue                                   # dead row: all -1
+        if row in dead_rows:
+            continue
         chain = -(-ln // blk)
         tables[row, :chain] = perm[used:used + chain]
         used += chain
-    tables[1, 5] = -1                                  # dead entry below the length
+    for row, page in holes:
+        tables[row, page] = -1
     return (q, k, v, torch.from_numpy(tables).cuda(),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
@@ -229,6 +254,33 @@ def _live_positions(tables, lengths, blk) -> int:
             if e >= 0:
                 n += max(0, min(blk, ln - pg * blk))
     return n
+
+
+def _paged_kernel_ms(copies):
+    """Mean device time a call of the split kernel and of the combine
+    kernel, from a profiler trace of one call per copy; (None, None) when
+    the profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import paged_attention as pa
+    for c in copies:
+        pa.paged_attention(*c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in copies:
+            pa.paged_attention(*c)
+        torch.cuda.synchronize()
+    us = {"paged_attention_split": 0.0, "paged_attention_combine": 0.0}
+    seen = False
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in us:
+            if name in e.name:
+                us[name] += e.time_range.elapsed_us()
+                seen = True
+    if not seen:
+        return None, None
+    return tuple(us[n] / 1e3 / len(copies) for n in us)
 
 
 def _library_paged(q, k_pages, v_pages, tables, lengths):
@@ -249,44 +301,61 @@ def _library_paged(q, k_pages, v_pages, tables, lengths):
 def phase_kernels() -> dict:
     from repro_torch.kernels import paged_attention as pa
     rec = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, tables, lengths = case = _paged_case(dtype)
-        got = pa.paged_attention(*case)
-        want = pa.paged_attention_ref(*case)
-        torch.cuda.synchronize()
-        tol = KERNEL_TOL[dtype]
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.isfinite(got).all():
-            fail(f"paged_attention {dtype}: non-finite output")
-        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-            fail(f"paged_attention {dtype}: max |kernel - plain| = {err:.3e} "
-                 f"beyond atol=rtol={tol:g}")
-        if got[2].abs().max().item() != 0.0:
-            fail(f"paged_attention {dtype}: the dead row is not 0")
-        live = _live_positions(tables, lengths, k.shape[1])
-        live_bytes = 2 * live * q.shape[1] * q.shape[3] * k.element_size()
-        copies = [(q, k.clone(), v.clone(), tables, lengths)
-                  for _ in range(-(-L2_FLUSH_BYTES // live_bytes))]
-        ms = device_ms([lambda c=c: pa.paged_attention(*c) for c in copies])
-        plain_ms = device_ms([lambda c=c: pa.paged_attention_ref(*c) for c in copies])
-        library_ms = device_ms([lambda c=c: _library_paged(*c) for c in copies])
-        del copies
-        hkv, rep, hd = q.shape[1], q.shape[2], q.shape[3]
-        esz = k.element_size()
-        nbytes = (2 * live * hkv * hd * esz + 2 * q.numel() * q.element_size()
-                  + tables.numel() * 4 + lengths.numel() * 4)
-        ops = 4 * live * hkv * rep * hd
-        bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S[dtype] * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        rec[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms,
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        print(f"[kernels] paged_attention {str(dtype)[6:]}: max|kernel-plain| {err:.3e} "
-              f"(bound atol=rtol={tol:g}); kernel {ms * 1e3:.2f} us, plain "
-              f"{plain_ms * 1e3:.2f} us, gather+sdpa {library_ms * 1e3:.2f} us, bound "
-              f"{bound_ms * 1e3:.3f} us ({nbytes} B over {PEAK_BYTES_S:.3g} B/s, "
-              f"{live} live positions); device times from CUDA-graph replays over "
-              f"{-(-L2_FLUSH_BYTES // live_bytes)} input copies (cold L2)", flush=True)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, pages, lengths, dead_rows, holes in PAGED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, tables, lengths_t = case = _paged_case(dtype, b, pages, lengths,
+                                                            dead_rows, holes)
+            n_splits, pps = pa.split_plan(b, q.shape[1], pages, n_sm)
+            before = pa.launches
+            got = pa.paged_attention(*case)
+            want = pa.paged_attention_ref(*case)
+            torch.cuda.synchronize()
+            if pa.launches != before + 1:
+                fail(f"paged_attention {label} {dtype}: the wrapper counted "
+                     f"{pa.launches - before} launches for one call")
+            tol = KERNEL_TOL[dtype]
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all():
+                fail(f"paged_attention {label} {dtype}: non-finite output")
+            if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                fail(f"paged_attention {label} {dtype}: max |kernel - plain| = {err:.3e} "
+                     f"beyond atol=rtol={tol:g}")
+            for row in dead_rows:
+                if got[row].abs().max().item() != 0.0:
+                    fail(f"paged_attention {label} {dtype}: dead row {row} is not 0")
+            del got, want
+            live = _live_positions(tables, lengths_t, k.shape[1])
+            hkv, rep, hd = q.shape[1], q.shape[2], q.shape[3]
+            esz = k.element_size()
+            live_bytes = 2 * live * hkv * hd * esz
+            n_copies = -(-L2_FLUSH_BYTES // live_bytes)
+            copies = [(q, k.clone(), v.clone(), tables, lengths_t) for _ in range(n_copies)]
+            ms = device_ms([lambda c=c: pa.paged_attention(*c) for c in copies])
+            split_ms, combine_ms = _paged_kernel_ms(copies)
+            plain_ms = device_ms([lambda c=c: pa.paged_attention_ref(*c) for c in copies])
+            library_ms = device_ms([lambda c=c: _library_paged(*c) for c in copies])
+            del copies
+            nbytes = (live_bytes + 2 * q.numel() * q.element_size()
+                      + tables.numel() * 4 + lengths_t.numel() * 4)
+            # the kernel's arithmetic is f32 on the CUDA cores, whatever the dtype
+            bound_ms, by, bytes_ms, _ = _bound(nbytes, 4 * live * hkv * rep * hd,
+                                               PEAK_OPS_S[torch.float32])
+            rec[(label, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+            kern = ("split and combine kernels not seen by the profiler" if split_ms is None
+                    else f"split kernel {split_ms * 1e3:.2f} us + combine kernel "
+                         f"{combine_ms * 1e3:.2f} us (profiler)")
+            print(f"[kernels] paged_attention {label} {str(dtype)[6:]} (B {b}, Hkv {hkv}, "
+                  f"rep {rep}, hd {hd}, block {k.shape[1]}, P {pages}; S {n_splits} of "
+                  f"{pps} pages): max|kernel-plain| {err:.3e} (atol=rtol={tol:g}); kernel "
+                  f"{ms * 1e3:.2f} us ({kern}), plain {plain_ms * 1e3:.2f} us, "
+                  f"gather+sdpa {library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
+                  f"({nbytes} B over {PEAK_BYTES_S:.3g} B/s = {bytes_ms * 1e3:.3f} us, by "
+                  f"{by}; {live} live positions); graph replays over {n_copies} input "
+                  f"copies (cold L2)", flush=True)
+            del case, q, k, v
+            torch.cuda.empty_cache()
     return rec
 
 
@@ -707,16 +776,49 @@ def phase_tile_kernels() -> dict:
           f"{host_us[torch.float16]:.1f} us, f32 (no maps) {host_us[torch.float32]:.1f} us",
           flush=True)
 
-    # matmul_acc at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
-    for m, k, nn in ((4096, 2048, 2048), (8192, 1024, 1024)):
-        a, b, c = rnd(m, k), rnd(k, nn), rnd(m, nn)
+    # f32 matmul_acc (the TMA-fed CUDA-core tile), in place, against the
+    # plain version: a ragged shape (partial tiles in M, N and K: TMA zero
+    # fill, bounded C traffic) and a column panel of a wider block (lda > k,
+    # as summa_body passes)
+    blk = rnd(2048, 4096)
+    for label, a, b, c in (("ragged (1000x1032)x(1032x520)", rnd(1000, 1032), rnd(1032, 520),
+                            rnd(1000, 520)),
+                           ("column panel A[:, 2048:3072] of a (2048, 4096) block",
+                            blk[:, 2048:3072], rnd(1024, 2048), rnd(2048, 2048))):
         want = km.matmul_acc_ref(a, b, c.clone())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
+        before = dict(km.launches)
         got = km.matmul_acc(a, b, c)
         torch.cuda.synchronize()
-        grew = torch.cuda.max_memory_allocated() - before
+        err = (got - want).abs().max().item()
+        counted = {k_: km.launches[k_] - before[k_] for k_ in km.launches}
+        print(f"[kernels] matmul_acc f32 {label} (lda {a.stride(0)}): in place "
+              f"{got.data_ptr() == c.data_ptr()}; launches {counted}; max|kernel-plain| "
+              f"{err:.3e} (rtol 1e-4, atol 1e-3)", flush=True)
+        if got.data_ptr() != c.data_ptr() or counted["matmul_acc"] != 1 or \
+                not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+            fail(f"matmul_acc f32 {label}: not in place, not one TMA-tile launch, or max "
+                 f"|kernel - plain| = {err:.3e} beyond rtol 1e-4, atol 1e-3")
+    del blk
+
+    # matmul_acc at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
+    # and the 2.5D Cannon 2x2x2 block shape, f32 (TMA tile); then f16 inputs
+    # (the SIMT tile) at the SUMMA shape against c.addmm_ of the widened
+    # inputs
+    for m, k, nn, dtype in ((4096, 2048, 2048, torch.float32), (8192, 1024, 1024, torch.float32),
+                            (4096, 4096, 4096, torch.float32),
+                            (4096, 2048, 2048, torch.float16)):
+        a, b, c = rnd(m, k, dtype=dtype), rnd(k, nn, dtype=dtype), rnd(m, nn)
+        want = km.matmul_acc_ref(a, b, c.clone())
+        key = "matmul_acc" if km._route_acc(dtype) == "tma" else "matmul_acc_f16_simt"
+        before = km.launches[key]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = km.matmul_acc(a, b, c)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        if km.launches[key] != before + 1:
+            fail(f"matmul_acc {dtype} ({m}, {k}, {nn}): no {key} launch counted")
         if got.data_ptr() != c.data_ptr():
             fail(f"matmul_acc ({m}, {k}, {nn}): the result is not c's storage")
         if grew >= m * nn * 4:
@@ -724,24 +826,30 @@ def phase_tile_kernels() -> dict:
                  f"call, an (m, n) temporary is {m * nn * 4} B")
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"matmul_acc ({m}, {k}, {nn}): max |kernel - plain| = {err:.3e} beyond "
-                 f"rtol 1e-4, atol 1e-3")
-        nbytes = (m * k + k * nn + 2 * m * nn) * 4
+            fail(f"matmul_acc {dtype} ({m}, {k}, {nn}): max |kernel - plain| = {err:.3e} "
+                 f"beyond rtol 1e-4, atol 1e-3")
+        esz = a.element_size()
+        nbytes = (m * k + k * nn) * esz + 2 * m * nn * 4
         cases = _copies(lambda: (a.clone(), b.clone(), c.clone()), nbytes)
         ms = device_ms([lambda c=c: km.matmul_acc(*c) for c in cases])
         plain_ms = device_ms([lambda c=c: km.matmul_acc_ref(*c) for c in cases])
-        library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in cases])
-        del cases
+        wide = [(x.float(), y.float(), z) for x, y, z in cases]
+        library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in wide])
+        del cases, wide
         bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * m * k * nn, PEAK_OPS_S[torch.float32])
-        rec[("matmul_acc", (m, k, nn))] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                               library_ms=library_ms, bound_ms=bound_ms,
-                                               bound_by=by)
-        print(f"[kernels] matmul_acc f32 ({m}x{k})x({k}x{nn}): in place (result at c's "
-              f"address, memory grew {grew} B < {m * nn * 4} B); max|kernel-plain| "
-              f"{err:.3e} (rtol 1e-4, atol 1e-3); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"c.addmm_ {library_ms:.3f} ms; bound {bound_ms:.3f} ms = max(2*{m}*{k}*{nn} = "
-              f"{2 * m * k * nn / 1e9:.2f} GFLOP / 67 TFLOP/s = {ops_ms:.3f} ms, "
-              f"{nbytes / 1e6:.0f} MB / 3.35 TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+        if dtype == torch.float32:
+            rec[("matmul_acc", (m, k, nn))] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   library_ms=library_ms, bound_ms=bound_ms,
+                                                   bound_by=by)
+        print(f"[kernels] matmul_acc {str(dtype)[6:]} in ({m}x{k})x({k}x{nn}) ({key} kernel): "
+              f"in place (result at c's address, memory grew {grew} B < {m * nn * 4} B); "
+              f"max|kernel-plain| {err:.3e} (rtol 1e-4, atol 1e-3); kernel {ms:.3f} ms "
+              f"({2 * m * k * nn / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, c.addmm_"
+              f"{' of the widened inputs' if esz == 2 else ''} {library_ms:.3f} ms "
+              f"(kernel / addmm_ {ms / library_ms:.2f}); bound {bound_ms:.3f} ms = "
+              f"max(2*{m}*{k}*{nn} = {2 * m * k * nn / 1e9:.2f} GFLOP / 67 TFLOP/s = "
+              f"{ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / 3.35 TB/s = {bytes_ms:.3f} ms), "
+              f"by {by}", flush=True)
 
     # minplus at 4096^3: integer weights, some +inf; exact
     a = torch.randint(0, 100, (n, n), generator=g, device="cuda").float()
@@ -1062,7 +1170,7 @@ def main() -> None:
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     kernels = [
         _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",
-                launches, rec[torch.bfloat16]),
+                launches, rec[("serve", torch.bfloat16)]),
         _record("matmul", csrc + "matmul.cu", ref + "matmul.py:82", counts["matmul"],
                 tile[("matmul", torch.float32)]),
         _record("matmul_f16", csrc + "matmul.cu", ref + "matmul.py:82",

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the tensor-core kernels (matmul.cu's
-// f16 matmul, flash_attention.cu's bf16 flash attention): TMA tensor maps
-// built on the host, mbarrier waits with phase bits, wgmma descriptors for
-// 128-byte-swizzled tiles, and the wgmma.mma_async instructions these two
-// kernels issue, all with an f32 accumulator.
+// Hopper (sm_90a) building blocks of the TMA-fed kernels (matmul.cu's f16
+// matmul and f32 matmul_acc, flash_attention.cu's bf16 flash attention):
+// TMA tensor maps built on the host, mbarrier waits with phase bits, wgmma
+// descriptors for 128-byte-swizzled tiles, and the wgmma.mma_async
+// instructions the two tensor-core kernels issue, all with an f32
+// accumulator.
 //
 // How the pieces agree.  A TMA box whose inner extent is 64 16-bit elements
 // (128 bytes) lands in shared memory as rows of 128 bytes with the 128-byte
@@ -67,19 +68,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a rank-`rank` tensor of 16-bit elements: dims innermost first,
-// byte strides of dims 1.. (multiples of 16), a box of `box` elements whose
-// inner extent is 64 (128 bytes), 128-byte swizzle, zero fill.  The base
-// must be 16-byte aligned.  Returns cudaSuccess or cudaErrorInvalidValue.
+// A map of a rank-`rank` tensor: dims innermost first, byte strides of dims
+// 1.. (multiples of 16), a box of `box` elements, zero fill.  With the
+// default 128-byte swizzle the box's inner extent is 128 bytes (64 16-bit
+// or 32 f32 elements); with CU_TENSOR_MAP_SWIZZLE_NONE it may be any
+// multiple of 16 bytes.  The base must be 16-byte aligned.  Returns
+// cudaSuccess or cudaErrorInvalidValue.
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank,
                             const void* base, const cuuint64_t* dims,
-                            const cuuint64_t* byte_strides, const cuuint32_t* box) {
+                            const cuuint64_t* byte_strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, dtype, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
                         dims, byte_strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -6,12 +6,14 @@
 //   matmul_acc_pallas  (body _matmul_acc_kernel)  C <- C + A.B, accumulator
 //                                                 seeded from the C tile, C's
 //                                                 buffer is the output.
-// Three kernels carry them:
+// Four kernels carry them:
 //   repro_matmul_f16   f16 A and B, f32 or f16 C: the tensor-core kernel
 //                      below (wgmma fed by TMA);
 //   repro_matmul       f32 A and B, f32 or f16 C: simt_tile.cuh, IEEE f32 on
 //                      the CUDA cores;
-//   repro_matmul_acc   f32 or f16 A and B, f32 C, in place: simt_tile.cuh.
+//   repro_matmul_acc   f32 A and B, f32 C, in place: ffma_tile.cuh, IEEE f32
+//                      on the CUDA cores fed by TMA; f16 A and B:
+//                      simt_tile.cuh.
 // f32 inputs stay on the CUDA cores: the reference's f32 bound of 1e-4 rules
 // out TF32 tensor cores.  matmul_acc reads and writes each C tile from the
 // one block that owns it, so the update in place is safe and allocates
@@ -41,6 +43,7 @@
 
 #include <cuda_fp16.h>
 
+#include "ffma_tile.cuh"
 #include "hopper_tile.cuh"
 #include "simt_tile.cuh"
 
@@ -214,13 +217,13 @@ extern "C" int repro_matmul(int in_code, int out_code, const void* a, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// C (f32) += A.B for f32 or f16 A and B
+// C (f32) += A.B for f32 A and B (TMA: 16-byte aligned bases, row strides a
+// multiple of 4 elements) or f16 A and B
 extern "C" int repro_matmul_acc(int in_code, const void* a, const void* b, void* c, int m,
                                 int n, int k, long long lda, long long ldb, long long ldc,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_code == 0)
-    return simt::launch<float, float, simt::kAccumulate>(a, b, c, m, n, k, lda, ldb, ldc, s);
+  if (in_code == 0) return f32tile::launch_acc(a, b, c, m, n, k, lda, ldb, ldc, s);
   if (in_code == 1)
     return simt::launch<__half, float, simt::kAccumulate>(a, b, c, m, n, k, lda, ldb, ldc, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a): split-KV over all SMs.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py
 // (paged_attention_pallas, body _paged_attn_kernel): one query token per
@@ -18,24 +18,35 @@
 // treated as dead, so a bad table never reads outside the arena.
 //
 // Bound: the kernel must read every live K and V page once.  For B requests
-// of L live tokens that is 2 * B * L * Hkv * hd * sizeof(kv) bytes, at the
+// of L live tokens that is 2 * B * L * Hkv * hd * sizeof(kv) bytes at the
 // card's 3.35 TB/s; the arithmetic (4 * B * Hkv * rep * L * hd operations)
-// is far below the tensor-core rate, so decode attention is bound by bytes.
+// is far below the CUDA cores' rate, so decode attention is bound by bytes
+// and by latency.  No tensor cores: a kv head has rep (3 for Llama-3.2-3B)
+// query rows, and wgmma's smallest M is 64.
 //
-// Design (simple and right first): one thread block per (request, kv-head).
-// The block loads its own table row and length (scalar prefetch has no
-// counterpart here) and walks the live pages only, so the TPU grid's
-// sequential page axis becomes a loop inside the block.  Each live page's K
-// and V rows for the block's head are copied into shared memory with 16-byte
-// cp.async copies, double-buffered: the next live page is in flight while
-// the current one is scored, so a page costs its arithmetic, not a
-// device-memory round trip.  Per page, each warp scores a quarter of the
-// valid tokens against the block's rep query heads (lanes split hd,
-// warp-shuffle reduction), one warp per query head folds the page into the
-// online-softmax statistics, and every thread accumulates P.V in f32 for
-// the head dims it owns.  The grid is B * Hkv blocks, which leaves most SMs
-// idle at small batch; split-K over pages (flash-decoding), wgmma and TMA
-// are left to later work.
+// Design: split-KV (flash-decoding).  The grid is (B, Hkv, S): block
+// (b, h, s) takes pages [s * pps, (s + 1) * pps) of row b's table, so even
+// a batch of 4 fills the 132 SMs (S and pps are chosen on the host from B,
+// Hkv, P and the SM count only; lengths are never read back).  Inside a
+// block each warp works alone, with no block barrier in its loop: it takes
+// every 4th chunk of the split (a chunk is ct tokens of one page, 2 KB of
+// K rows and as much of V; a dead page or one past the length is skipped
+// whole), keeps a 3-stage ring of its chunks in flight with 16-byte
+// cp.async copies (rows past the length are zero-filled, not copied), and
+// scores them with lanes in groups of 16 (32 when hd > 128): each lane holds 8
+// elements of the token row, for all rep heads at once, reading 16 bytes of
+// K from shared memory and summing over its group with shuffles.  Scores
+// are kept in the log2 domain (q is scaled by scale * log2 e in f32), so
+// every exponential is one exp2.  Each lane group keeps its own
+// online-softmax state (one rescale per chunk); groups, then warps, then
+// splits are merged by the same rule: m = max m_i, l = sum 2^(m_i - m) l_i,
+// acc = sum 2^(m_i - m) acc_i.  With S > 1 each block writes its partial
+// (m, l, acc) in f32 to a workspace and paged_attention_combine, a second
+// launch on the same stream, folds the splits of each (b, h) and divides by
+// l.  An empty split has m = -1e30 and l = acc = 0, so it weighs
+// 2^(-1e30 - m) = 0 beside a live split and 1 among empty ones; a row whose
+// splits are all empty has l = 0 and writes exactly 0.  With S = 1 the
+// block writes the output itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,11 +55,14 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDimsPerThread = 2;      // hd <= 256
+constexpr int kStages = 3;                // chunks in flight per warp
+constexpr int kLaneElems = 8;             // one lane's slice of a token row
+constexpr int kMaxHd = 256;               // 32 lanes x 8 elements
+constexpr float kNegInf = -1e30f;         // the Pallas kernel's initial max
+constexpr float kLog2e = 1.4426950408889634f;
 // query heads per kv head (GQA group) are a template parameter: a runtime
 // count would leave the per-head accumulators to dynamic indexing, which
-// moves them to local memory (measured 4x slower per page on the H100)
-constexpr float kNegInf = -1e30f;         // the Pallas kernel's initial max
+// moves them to local memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -57,6 +71,21 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// the elements of one 16-byte vector, widened to f32
+__device__ __forceinline__ void widen16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src) {
@@ -68,224 +97,353 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Lanes per token: 16 up to hd 128, 32 up to 256 (a lane past hd holds
+// zeros of q and its products add nothing).
+__host__ __device__ inline int lanes_per_token(int hd) { return hd <= 128 ? 16 : 32; }
+// Tokens per chunk: 32 / g tokens a step, 8 / sizeof(kv) steps (2 KB of K
+// rows at hd 128 or 256).
+__host__ __device__ inline int chunk_tokens(int hd, int kv_bytes) {
+  return 32 / lanes_per_token(hd) * (8 / kv_bytes);
 }
 
-// Shared-memory bytes of one block: f32 queries, scores and statistics,
-// then two (K, V) page buffers in the arena's dtype, 16-byte aligned.
-__host__ __device__ inline size_t stats_bytes(int rep, int hd, int blk) {
-  const size_t b = sizeof(float) * (static_cast<size_t>(rep) * hd +
-                                    static_cast<size_t>(rep) * blk + 3 * rep);
-  return (b + 15) / 16 * 16;
+// Dynamic shared memory of a split block: the split's table entries, the
+// four warps' rings of (K, V) chunks, and the warps' merged states (m, l,
+// acc) for the block's merge.
+__host__ __device__ inline size_t table_bytes(int pps) {
+  return (static_cast<size_t>(pps) * sizeof(int) + 15) / 16 * 16;
 }
-template <typename TKV>
-__host__ __device__ inline size_t smem_bytes(int rep, int hd, int blk) {
-  return stats_bytes(rep, hd, blk) + 4 * static_cast<size_t>(blk) * hd * sizeof(TKV);
+__host__ __device__ inline size_t ring_bytes(int hd, int kv_bytes) {
+  return static_cast<size_t>(kWarps) * kStages * 2 * chunk_tokens(hd, kv_bytes) * hd * kv_bytes;
 }
-
-// Copy the first n_valid token rows of one page (this block's head) into
-// shared memory: each row is hd contiguous elements, cut in 16-byte pieces.
-template <typename TKV>
-__device__ __forceinline__ void load_page(TKV* k_dst, TKV* v_dst, const TKV* k_src,
-                                          const TKV* v_src, int n_valid, int hd,
-                                          long long tok_stride) {
-  constexpr int kVec = 16 / sizeof(TKV);
-  const int per_row = hd / kVec;
-  const int n = n_valid * per_row;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int t = i / per_row;
-    const int c = (i - t * per_row) * kVec;
-    cp_async_16(k_dst + t * hd + c, k_src + t * tok_stride + c);
-    cp_async_16(v_dst + t * hd + c, v_src + t * tok_stride + c);
-  }
+__host__ __device__ inline size_t smem_bytes(int rep, int hd, int kv_bytes, int pps) {
+  return table_bytes(pps) + ring_bytes(hd, kv_bytes) +
+         sizeof(float) * kWarps * static_cast<size_t>(rep) * (hd + 2);
 }
 
-template <typename TQ, typename TKV, int REP>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-                       const TKV* __restrict__ v_pages,
-                       const int* __restrict__ block_tables,
-                       const int* __restrict__ lengths, TQ* __restrict__ out,
-                       int hkv, int hd, int n_blocks, int blk, int pages,
-                       float scale) {
-  constexpr int rep = REP;
+// kG: the lanes of a token (lanes_per_token), a compile-time constant so
+// that the group sums are straight-line shuffles: a shuffle under a branch
+// makes the compiler check the warp for divergence at each one, which cuts
+// the loop into blocks it cannot schedule across.
+template <typename TQ, typename TKV, int REP, int kG>
+__global__ void __launch_bounds__(kThreads, REP <= 4 ? 4 : 1)
+paged_attention_split(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+                      const TKV* __restrict__ v_pages, const int* __restrict__ block_tables,
+                      const int* __restrict__ lengths, TQ* __restrict__ out,
+                      float* __restrict__ ws, int hkv, int hd, int n_blocks, int blk,
+                      int pages, int pps, float qscale) {
+  constexpr int kVec = 16 / sizeof(TKV);           // elements of a 16-byte vector
+  constexpr int kVecs = kLaneElems / kVec;         // vectors a lane holds (1 or 2)
+  constexpr int kSteps = 8 / sizeof(TKV);          // tokens a lane group takes per chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);   // rep * hd  scaled f32 queries
-  float* p_s = q_s + rep * hd;         // rep * blk  scores, then probabilities
-  float* alpha_s = p_s + rep * blk;    // rep        rescale of this page
-  float* l_s = alpha_s + rep;          // rep        running denominators
-  float* m_s = l_s + rep;              // rep        running maxima
-  TKV* tiles = reinterpret_cast<TKV*>(smem_raw + stats_bytes(rep, hd, blk));
-  const int tile = blk * hd;           // K0 V0 K1 V1, one (K, V) pair per buffer
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z, n_splits = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int g = kG;
+  constexpr int tpw = 32 / g;                      // tokens a warp scores at once
+  constexpr int ct = tpw * kSteps;                 // tokens per chunk
+  const int grp = lane / g, sub = lane % g;
+  const int row_vecs = hd / kVec;
+  const int chunk_elems = ct * hd;
+
+  // this split's pages [p0, p0 + np), each cut into nsub chunks of ct tokens
+  const int p0 = s * pps;
+  const int np = min(pps, pages - p0);
   const int length = lengths[b];
-  const int* table = block_tables + static_cast<long long>(b) * pages;
-  const long long tok_stride = static_cast<long long>(hkv) * hd;
-  const long long page_stride = static_cast<long long>(blk) * tok_stride;
+  const int nsub = (blk + ct - 1) / ct;
 
-  // the next live page at or after p; pages at or past the length end the
-  // walk, dead (-1) entries and entries outside the arena are skipped whole
-  auto next_live = [&](int p) {
-    for (; p < pages && p * blk < length; ++p) {
-      const int e = table[p];
-      if (e >= 0 && e < n_blocks) return p;
-    }
-    return -1;
-  };
-  auto issue = [&](int p, int buf) {
-    const long long off = table[p] * page_stride + static_cast<long long>(h) * hd;
-    load_page(tiles + (2 * buf) * tile, tiles + (2 * buf + 1) * tile, k_pages + off,
-              v_pages + off, min(blk, length - p * blk), hd, tok_stride);
-  };
+  int* tbl = reinterpret_cast<int*>(smem_raw);
+  TKV* ring = reinterpret_cast<TKV*>(smem_raw + table_bytes(pps));
+  float* st = reinterpret_cast<float*>(smem_raw + table_bytes(pps) +
+                                       ring_bytes(hd, sizeof(TKV)));
+  float* st_m = st;                                // [warp][r]
+  float* st_l = st_m + kWarps * REP;               // [warp][r]
+  float* st_acc = st_l + kWarps * REP;             // [warp][r][hd]
 
-  int cur = next_live(0);
-  if (cur >= 0) issue(cur, 0);
-  cp_async_commit();
-
-  const long long head_off = (static_cast<long long>(b) * hkv + h) * rep * hd;
-  for (int i = tid; i < rep * hd; i += kThreads) q_s[i] = to_f32(q[head_off + i]) * scale;
-  if (tid < rep) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+  // the split's table entries: -1 for a dead entry, one outside the arena,
+  // or a page at or past the length
+  for (int i = tid; i < np; i += kThreads) {
+    const int e = block_tables[static_cast<long long>(b) * pages + p0 + i];
+    tbl[i] = (e >= 0 && e < n_blocks && (p0 + i) * blk < length) ? e : -1;
   }
-  float acc[REP][kMaxDimsPerThread];
+  // this lane's slice of the rep query rows, scaled in f32 by scale * log2(e)
+  // (scores live in the log2 domain: exp2 of their differences is the softmax)
+  const long long head_off = (static_cast<long long>(b) * hkv + h) * REP * hd;
+  float qf[REP][kLaneElems];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
 #pragma unroll
-    for (int j = 0; j < kMaxDimsPerThread; ++j) acc[r][j] = 0.f;
-
-  // block-uniform control flow: cur, nxt and n_valid are the same for every
-  // thread, so every thread reaches every barrier
-  int buf = 0;
-  while (cur >= 0) {
-    const int nxt = next_live(cur + 1);
-    if (nxt >= 0) issue(nxt, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();                // this thread's copies of `cur` landed
-    __syncthreads();                   // ... and every thread's
-
-    const TKV* ks = tiles + (2 * buf) * tile;
-    const TKV* vs = tiles + (2 * buf + 1) * tile;
-    const int n_valid = min(blk, length - cur * blk);   // partial last page
-
-    // scores s[r][t] = q_r . k_t
-    for (int t = warp; t < n_valid; t += kWarps) {
-      float part[REP];
+    for (int i = 0; i < kVecs; ++i)
 #pragma unroll
-      for (int r = 0; r < REP; ++r) part[r] = 0.f;
-      for (int d = lane; d < hd; d += 32) {
-        const float kd = to_f32(ks[t * hd + d]);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) part[r] += q_s[r * hd + d] * kd;
+      for (int e = 0; e < kVec; ++e) {
+        const int d = (sub + i * g) * kVec + e;
+        qf[r][i * kVec + e] = d < hd ? to_f32(q[head_off + r * hd + d]) * qscale : 0.f;
       }
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float s = warp_sum(part[r]);
-        if (lane == 0) p_s[r * blk + t] = s;
-      }
-    }
-    __syncthreads();
+  __syncthreads();
 
-    // online softmax, one warp per query head: fold this page into (m, l)
-    // and turn its scores into probabilities
-    for (int r = warp; r < rep; r += kWarps) {
-      float* row = p_s + r * blk;
-      float m_cur = kNegInf;
-      for (int t = lane; t < n_valid; t += 32) m_cur = fmaxf(m_cur, row[t]);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(m_cur));
-      float sum = 0.f;
-      for (int t = lane; t < n_valid; t += 32) {
-        const float p = expf(row[t] - m_new);
-        row[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
+  float m[REP], l[REP], acc[REP][kLaneElems];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kLaneElems; ++e) acc[r][e] = 0.f;
+  }
 
-    // acc[r][d] = alpha_r * acc[r][d] + sum_t p[r][t] * v[t][d]
-#pragma unroll
-    for (int j = 0; j < kMaxDimsPerThread; ++j) {
-      const int d = tid + j * kThreads;
-      if (d < hd) {
-#pragma unroll
-        for (int r = 0; r < REP; ++r) acc[r][j] *= alpha_s[r];
-        for (int t = 0; t < n_valid; ++t) {
-          const float vd = to_f32(vs[t * hd + d]);
-#pragma unroll
-          for (int r = 0; r < REP; ++r) acc[r][j] += p_s[r * blk + t] * vd;
+  // warp w takes chunks w, w + 4, ... of the split; its i-th chunk sits in
+  // ring slot i % 3.  Chunk c is tokens [o0, o0 + ct) of page c / nsub.
+  const int n_chunks = np * nsub;
+  const int my_chunks = n_chunks > warp ? (n_chunks - warp + kWarps - 1) / kWarps : 0;
+  TKV* my_ring = ring + static_cast<size_t>(warp) * kStages * 2 * chunk_elems;
+  const long long tok_stride = static_cast<long long>(hkv) * hd;
+  // the arena block of this warp's i-th chunk and its count of valid
+  // tokens, or a count <= 0 for a chunk to skip (dead, past the length)
+  auto chunk_of = [&](int i, int& e, int& o0) {
+    const int c = warp + i * kWarps;
+    const int pi = c / nsub;
+    o0 = (c - pi * nsub) * ct;
+    e = tbl[pi];
+    return e < 0 ? 0 : min(blk, length - (p0 + pi) * blk) - o0;
+  };
+  // Copy this warp's i-th chunk into its ring slot, zeros for the rows past
+  // the valid ones, and commit one cp.async group (empty when skipped).
+  auto issue = [&](int i) {
+    int e, o0;
+    if (i < my_chunks) {
+      const int nv = chunk_of(i, e, o0);
+      if (nv > 0) {
+        TKV* ks = my_ring + (i % kStages) * 2 * chunk_elems;
+        TKV* vs = ks + chunk_elems;
+        const long long off = (static_cast<long long>(e) * blk + o0) * tok_stride +
+                              static_cast<long long>(h) * hd;
+        for (int it = lane; it < ct * row_vecs; it += 32) {
+          const int j = it / row_vecs;
+          const int c = (it - j * row_vecs) * kVec;
+          if (j < nv) {
+            cp_async_16(ks + j * hd + c, k_pages + off + j * tok_stride + c);
+            cp_async_16(vs + j * hd + c, v_pages + off + j * tok_stride + c);
+          } else {
+            *reinterpret_cast<uint4*>(ks + j * hd + c) = make_uint4(0, 0, 0, 0);
+            *reinterpret_cast<uint4*>(vs + j * hd + c) = make_uint4(0, 0, 0, 0);
+          }
         }
       }
     }
-    __syncthreads();                   // buffers and p_s are rewritten next
-    cur = nxt;
-    buf ^= 1;
-  }
-  cp_async_wait<0>();
-  __syncthreads();                     // l_s from the last page (or the init)
+    cp_async_commit();
+  };
 
 #pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    const float l = l_s[r];
-    const float safe = (l == 0.f) ? 1.f : l;         // no live page: output 0
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < my_chunks; ++i) {
+    issue(i + kStages - 1);
+    int e, o0;
+    const int nv = chunk_of(i, e, o0);
+    cp_async_wait<kStages - 1>();                  // this lane's copies of chunk i landed
+    __syncwarp();                                  // ... and every lane's
+    if (nv > 0) {                                  // warp-uniform
+      const TKV* ks = my_ring + (i % kStages) * 2 * chunk_elems;
+      const TKV* vs = ks + chunk_elems;
+      // scores of this group's kSteps tokens for all rep heads; a row past
+      // the valid ones is zeros, masked here
+      float sc[REP][kSteps];
+      float m_chunk[REP];
 #pragma unroll
-    for (int j = 0; j < kMaxDimsPerThread; ++j) {
-      const int d = tid + j * kThreads;
-      if (d < hd) out[head_off + r * hd + d] = from_f32<TQ>(acc[r][j] / safe);
+      for (int r = 0; r < REP; ++r) m_chunk[r] = kNegInf;
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        const int j = grp + t * tpw;
+        float part[REP];
+#pragma unroll
+        for (int r = 0; r < REP; ++r) part[r] = 0.f;
+#pragma unroll
+        for (int vi = 0; vi < kVecs; ++vi) {
+          // a lane past hd reads the row's start: finite, and its q is 0
+          const int d0 = (sub + vi * g) * kVec;
+          float kv[kVec];
+          widen16(ks + j * hd + (d0 < hd ? d0 : 0), kv);
+#pragma unroll
+          for (int x = 0; x < kVec; ++x)
+#pragma unroll
+            for (int r = 0; r < REP; ++r) part[r] = fmaf(qf[r][vi * kVec + x], kv[x], part[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+#pragma unroll
+          for (int o = g / 2; o > 0; o >>= 1)    // sum over the g lanes of the token
+            part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
+          sc[r][t] = j < nv ? part[r] : kNegInf;
+          m_chunk[r] = fmaxf(m_chunk[r], sc[r][t]);
+        }
+      }
+      // one rescale per chunk, then P.V (masked tokens: p = 0 over zero rows)
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float m_new = fmaxf(m[r], m_chunk[r]);
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int x = 0; x < kLaneElems; ++x) acc[r][x] *= alpha;
+      }
+#pragma unroll
+      for (int t = 0; t < kSteps; ++t) {
+        const int j = grp + t * tpw;
+        float p[REP];
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          p[r] = j < nv ? exp2f(sc[r][t] - m[r]) : 0.f;   // 0, not exp2(0), in a
+          l[r] += p[r];                                   // group with no live token yet
+        }
+#pragma unroll
+        for (int vi = 0; vi < kVecs; ++vi) {
+          const int d0 = (sub + vi * g) * kVec;     // past hd: never stored
+          float vv[kVec];
+          widen16(vs + j * hd + (d0 < hd ? d0 : 0), vv);
+#pragma unroll
+          for (int x = 0; x < kVec; ++x)
+#pragma unroll
+            for (int r = 0; r < REP; ++r)
+              acc[r][vi * kVec + x] = fmaf(p[r], vv[x], acc[r][vi * kVec + x]);
+        }
+      }
+    }
+    __syncwarp();                                  // the slot is refilled next
+  }
+  cp_async_wait<0>();
+
+  // merge the lane groups of the warp (lanes lane ^ o for o >= g share sub)
+#pragma unroll
+  for (int o = g; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[r], o);
+      const float m_new = fmaxf(m[r], m_o);
+      const float a = exp2f(m[r] - m_new), a_o = exp2f(m_o - m_new);
+      m[r] = m_new;
+      l[r] = l[r] * a + l_o * a_o;
+#pragma unroll
+      for (int x = 0; x < kLaneElems; ++x)
+        acc[r][x] = acc[r][x] * a + __shfl_xor_sync(0xffffffffu, acc[r][x], o) * a_o;
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      if (sub == 0) {
+        st_m[warp * REP + r] = m[r];
+        st_l[warp * REP + r] = l[r];
+      }
+#pragma unroll
+      for (int vi = 0; vi < kVecs; ++vi)
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) {
+          const int d = (sub + vi * g) * kVec + x;
+          if (d < hd) st_acc[(warp * REP + r) * hd + d] = acc[r][vi * kVec + x];
+        }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps: the block's (m, l, acc), written as the output (S = 1)
+  // or as this split's partial
+  const long long part_base = ((static_cast<long long>(b) * hkv + h) * n_splits + s) * REP;
+  float* ws_acc = ws;
+  float* ws_ml = ws + static_cast<long long>(gridDim.x) * hkv * n_splits * REP * hd;
+  for (int idx = tid; idx < REP * hd; idx += kThreads) {
+    const int r = idx / hd;
+    float m_b = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_b = fmaxf(m_b, st_m[w * REP + r]);
+    float l_b = 0.f, acc_b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float a = exp2f(st_m[w * REP + r] - m_b);
+      l_b += a * st_l[w * REP + r];
+      acc_b += a * st_acc[(w * REP + r) * hd + idx - r * hd];
+    }
+    if (n_splits == 1) {
+      out[head_off + idx] = from_f32<TQ>(l_b == 0.f ? 0.f : acc_b / l_b);
+    } else {
+      ws_acc[part_base * hd + idx] = acc_b;
+      if (idx - r * hd == 0) {
+        ws_ml[(part_base + r) * 2] = m_b;
+        ws_ml[(part_base + r) * 2 + 1] = l_b;
+      }
     }
   }
 }
 
-template <typename TQ, typename TKV, int REP>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
-                   const int* lengths, void* out, int b, int hkv, int hd, int n_blocks,
-                   int blk, int pages, float scale, cudaStream_t stream) {
-  if ((hd * sizeof(TKV)) % 16 != 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<TKV>(REP, hd, blk);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<TQ, TKV, REP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// The splits of each (b, h): rescale by exp2(m_s - max m), sum, divide by
+// the summed l (exactly 0 where every split is empty).  One thread an
+// output (grid (B, Hkv, rep * hd / 128)); it folds the splits in one pass,
+// so the loads of all splits are independent of each other and of the
+// running state.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_combine(const float* __restrict__ ws, TQ* __restrict__ out, int hkv,
+                        int rep, int hd, int n_splits) {
+  const long long bh = static_cast<long long>(blockIdx.x) * hkv + blockIdx.y;
+  const float* ws_acc = ws + bh * n_splits * rep * hd;
+  const float* ws_ml = ws + static_cast<long long>(gridDim.x) * hkv * n_splits * rep * hd +
+                       bh * n_splits * rep * 2;
+  const int idx = blockIdx.z * kThreads + threadIdx.x;
+  if (idx < rep * hd) {
+    const int r = idx / hd, d = idx - r * hd;
+    float m = kNegInf, l = 0.f, acc = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_splits; ++s) {
+      const float m_s = ws_ml[(s * rep + r) * 2];
+      const float l_s = ws_ml[(s * rep + r) * 2 + 1];
+      const float acc_s = ws_acc[(s * rep + r) * hd + d];
+      const float m_new = fmaxf(m, m_s);
+      const float a = exp2f(m - m_new), a_s = exp2f(m_s - m_new);
+      l = l * a + l_s * a_s;
+      acc = acc * a + acc_s * a_s;
+      m = m_new;
+    }
+    out[bh * rep * hd + idx] = from_f32<TQ>(l == 0.f ? 0.f : acc / l);
   }
-  const dim3 grid(b, hkv);
-  paged_attention_kernel<TQ, TKV, REP><<<grid, kThreads, smem, stream>>>(
+}
+
+template <typename TQ, typename TKV, int REP, int kG>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
+                   const int* lengths, void* out, void* ws, int b, int hkv, int hd,
+                   int n_blocks, int blk, int pages, int pps, float scale,
+                   cudaStream_t stream) {
+  if ((hd * sizeof(TKV)) % 16 != 0) return cudaErrorInvalidValue;
+  const int n_splits = (pages + pps - 1) / pps;
+  if (n_splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(REP, hd, sizeof(TKV), pps);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_split<TQ, TKV, REP, kG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  paged_attention_split<TQ, TKV, REP, kG><<<dim3(b, hkv, n_splits), kThreads, smem,
+                                             stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      tables, lengths, static_cast<TQ*>(out), hkv, hd, n_blocks, blk, pages, scale);
+      tables, lengths, static_cast<TQ*>(out), static_cast<float*>(ws), hkv, hd, n_blocks,
+      blk, pages, pps, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  paged_attention_combine<TQ><<<dim3(b, hkv, (REP * hd + kThreads - 1) / kThreads), kThreads,
+                                0, stream>>>(
+      static_cast<const float*>(ws), static_cast<TQ*>(out), hkv, REP, hd, n_splits);
   return cudaGetLastError();
 }
 
 // the GQA group sizes of the repository's archs (Hq / Hkv)
 template <typename TQ, typename TKV>
 cudaError_t launch_rep(int rep, const void* q, const void* k, const void* v,
-                       const int* tables, const int* lengths, void* out, int b, int hkv,
-                       int hd, int n_blocks, int blk, int pages, float scale,
-                       cudaStream_t s) {
-#define REPRO_REP_CASE(R)                                                               \
-  case R:                                                                               \
-    return launch<TQ, TKV, R>(q, k, v, tables, lengths, out, b, hkv, hd, n_blocks, blk, \
-                              pages, scale, s);
+                       const int* tables, const int* lengths, void* out, void* ws, int b,
+                       int hkv, int hd, int n_blocks, int blk, int pages, int pps,
+                       float scale, cudaStream_t s) {
+#define REPRO_REP_CASE(R)                                                                  \
+  case R:                                                                                  \
+    return hd <= 128 ? launch<TQ, TKV, R, 16>(q, k, v, tables, lengths, out, ws, b, hkv, hd, \
+                                              n_blocks, blk, pages, pps, scale, s)          \
+                     : launch<TQ, TKV, R, 32>(q, k, v, tables, lengths, out, ws, b, hkv, hd, \
+                                              n_blocks, blk, pages, pps, scale, s);
   switch (rep) {
     REPRO_REP_CASE(1)
     REPRO_REP_CASE(2)
@@ -307,25 +465,29 @@ extern "C" {
 
 // dtype codes: 0 = bfloat16, 1 = float32; q and the arenas are bf16/bf16,
 // f32/f32 or f32/bf16 (an f32 model over the bf16 cache).  rep is one of
-// 1, 2, 3, 4, 6, 8, 12, 16.  Returns a cudaError_t (0 = ok).
+// 1, 2, 3, 4, 6, 8, 12, 16.  pps is the pages of a split; the grid has
+// ceil(pages / pps) splits, and with more than one, ws holds B * Hkv *
+// splits * rep * (hd + 2) floats of workspace.  Returns a cudaError_t
+// (0 = ok).
 int repro_paged_attention(int q_dtype, int kv_dtype, const void* q, const void* k,
                           const void* v, const int* block_tables, const int* lengths,
-                          void* out, int b, int hkv, int rep, int hd, int n_blocks,
-                          int blk, int pages, float scale, void* stream) {
-  if (b < 1 || hkv < 1 || hd < 1 || hd > kThreads * kMaxDimsPerThread || n_blocks < 1 ||
-      blk < 1 || pages < 1)
+                          void* out, void* ws, int b, int hkv, int rep, int hd, int n_blocks,
+                          int blk, int pages, int pps, float scale, void* stream) {
+  if (b < 1 || hkv < 1 || hd < 1 || hd > kMaxHd || n_blocks < 1 || blk < 1 || pages < 1 ||
+      pps < 1 || pps > pages)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == 0 && kv_dtype == 0)
     err = launch_rep<__nv_bfloat16, __nv_bfloat16>(rep, q, k, v, block_tables, lengths, out,
-                                                   b, hkv, hd, n_blocks, blk, pages, scale, s);
+                                                   ws, b, hkv, hd, n_blocks, blk, pages, pps,
+                                                   scale, s);
   else if (q_dtype == 1 && kv_dtype == 1)
-    err = launch_rep<float, float>(rep, q, k, v, block_tables, lengths, out, b, hkv, hd,
-                                   n_blocks, blk, pages, scale, s);
+    err = launch_rep<float, float>(rep, q, k, v, block_tables, lengths, out, ws, b, hkv, hd,
+                                   n_blocks, blk, pages, pps, scale, s);
   else if (q_dtype == 1 && kv_dtype == 0)
-    err = launch_rep<float, __nv_bfloat16>(rep, q, k, v, block_tables, lengths, out, b, hkv,
-                                           hd, n_blocks, blk, pages, scale, s);
+    err = launch_rep<float, __nv_bfloat16>(rep, q, k, v, block_tables, lengths, out, ws, b,
+                                           hkv, hd, n_blocks, blk, pages, pps, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

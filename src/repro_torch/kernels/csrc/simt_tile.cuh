@@ -1,6 +1,7 @@
-// The CUDA-core (SIMT) tile skeleton shared by the f32 matmul, the
+// The CUDA-core (SIMT) tile skeleton shared by the f32 matmul, the f16
 // matmul_acc and the (min, +) kernels for Hopper (sm_90a).  f16 matmul runs
-// on the tensor cores instead (matmul.cu, hopper_tile.cuh).
+// on the tensor cores instead (matmul.cu, hopper_tile.cuh), f32 matmul_acc
+// on the TMA-fed CUDA-core tile (ffma_tile.cuh).
 //
 // C = A (x) B for row-major A (M, K) and B (K, N) with unit inner stride and
 // row strides lda, ldb, ldc (so a column panel of a block is read in place).

@@ -8,14 +8,17 @@ the CPU they run ``matmul_ref`` / ``matmul_acc_ref``.  Nothing else selects
 the path, and no failure falls back to another kernel or to the plain
 version.
 
-Which kernel, by the input dtype alone (``_route``):
-  f16 ``matmul``  -> "wgmma": the tensor-core kernel (TMA-fed wgmma tiles,
-                     f32 accumulator); its inputs must meet TMA's alignment
-                     (``check_tma_alignment``), else the wrapper raises;
-  f32 ``matmul``  -> "simt": IEEE f32 on the CUDA cores (no TF32);
-  ``matmul_acc``  -> the SIMT kernel for f32 and f16 inputs alike.
-``launches`` counts each kernel apart: "matmul" (SIMT), "matmul_f16_wgmma"
-and "matmul_acc".
+Which kernel, by the input dtype alone (``_route``, ``_route_acc``):
+  f16 ``matmul``      -> "wgmma": the tensor-core kernel (TMA-fed wgmma
+                         tiles, f32 accumulator);
+  f32 ``matmul``      -> "simt": IEEE f32 on the CUDA cores (no TF32);
+  f32 ``matmul_acc``  -> "tma": IEEE f32 on the CUDA cores, fed by TMA
+                         (``csrc/ffma_tile.cuh``);
+  f16 ``matmul_acc``  -> "simt": the CUDA-core tile of f32 ``matmul``.
+The TMA-fed routes read A and B only where TMA can
+(``check_tma_alignment``), else the wrapper raises; no route takes another's
+inputs.  ``launches`` counts each kernel apart: "matmul" (SIMT),
+"matmul_f16_wgmma", "matmul_acc" (f32, TMA) and "matmul_acc_f16_simt".
 
 All accumulate in f32, as the Pallas kernels do with
 ``preferred_element_type=f32``; products of f16 values are exact in f32.
@@ -33,7 +36,7 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1}
 
 # kernel launches by kernel; chip_smoke.py resets and reads them
-launches = {"matmul": 0, "matmul_f16_wgmma": 0, "matmul_acc": 0}
+launches = {"matmul": 0, "matmul_f16_wgmma": 0, "matmul_acc": 0, "matmul_acc_f16_simt": 0}
 # None, or a list that each tile-kernel launch (matmul, matmul_acc, minplus)
 # appends its (name, start, end) CUDA events to; chip_smoke.py sums their
 # device time over a run
@@ -57,6 +60,13 @@ def _route(dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.float16 else "simt"
 
 
+def _route_acc(dtype: torch.dtype) -> str:
+    """The kernel that ``matmul_acc`` launches for inputs of ``dtype``:
+    "tma" (the TMA-fed CUDA-core tile, IEEE f32) for f32, "simt" (the
+    register-staged CUDA-core tile) for f16."""
+    return "tma" if dtype == torch.float32 else "simt"
+
+
 def check_tma_alignment(name: str, shape, strides, address: int, element_size: int) -> None:
     """Raise unless a row-major matrix (``shape``, element ``strides``, base
     ``address``) can be read by TMA: a 16-byte aligned base and a row stride
@@ -66,10 +76,11 @@ def check_tma_alignment(name: str, shape, strides, address: int, element_size: i
     row_bytes = strides[0] * element_size
     if address % 16 or (rows > 1 and row_bytes % 16):
         raise ValueError(
-            f"the {name} tensor-core kernel reads its inputs with TMA, which needs a "
+            f"the {name} kernel reads its inputs with TMA, which needs a "
             f"16-byte aligned base and a row stride of a multiple of 16 bytes; got a "
             f"{tuple(shape)} view at address {address:#x} with row stride {row_bytes} B "
-            f"(a copy with .contiguous() on a width that is a multiple of 8 meets it)")
+            f"(a copy with .contiguous() on a width of a multiple of {16 // element_size} "
+            f"elements meets it)")
 
 
 def _check(a, b, c=None) -> None:
@@ -159,7 +170,13 @@ def matmul_acc(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tenso
                         f"{a.dtype}, {b.dtype}, {c.dtype}")
     if not _on_card("matmul_acc", a, b, c):
         return matmul_acc_ref(a, b, c)
-    launch_tile("matmul", "repro_matmul_acc", "matmul_acc", (_DTYPE_CODE[a.dtype],),
-                a, b, c)
-    launches["matmul_acc"] += 1
+    if _route_acc(a.dtype) == "tma":
+        for t in (a, b):
+            check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(),
+                                t.element_size())
+        name = "matmul_acc"
+    else:
+        name = "matmul_acc_f16_simt"
+    launch_tile("matmul", "repro_matmul_acc", name, (_DTYPE_CODE[a.dtype],), a, b, c)
+    launches[name] += 1
     return c

@@ -10,6 +10,12 @@ Layouts are the JAX package's: q (B, Hkv, rep, hd); arenas (N, block, Hkv,
 hd); block_tables (B, P) int32 with -1 for an unallocated entry; lengths (B,)
 int32 valid tokens per request.  The output has q's dtype.
 
+The kernel splits each row's table into S ranges of ``pps`` pages
+(``split_plan``: from B, Hkv, P and the card's SM count, never from the
+lengths, which would sync the stream), writes each split's partial softmax
+state to an f32 workspace and combines the splits in a second small launch;
+one wrapper call counts as one launch.
+
 The two versions round at different places, as the TPU kernel and its jnp
 reference do.  The kernel follows the Pallas kernel: q scaled in f32, P.V in
 f32.  The plain version follows the reference: q scaled in q's dtype and the
@@ -21,6 +27,7 @@ bf16 rounding of the probabilities and of q * scale, which
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,7 +42,39 @@ _KERNEL_DTYPES = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float3
                   (torch.float32, torch.bfloat16)}
 _KERNEL_REPS = (1, 2, 3, 4, 6, 8, 12, 16)
 
-launches = 0          # kernel launches; ``chip_smoke.py`` resets and reads it
+launches = 0          # wrapper calls on the card; ``chip_smoke.py`` resets and reads it
+
+# the kernel's block: 4 warps, each with a 3-stage ring of (K, V) chunks
+_WARPS, _STAGES = 4, 3
+_SMEM_LIMIT = 227 * 1024
+
+
+def split_plan(batch: int, hkv: int, pages: int, n_sm: int) -> tuple:
+    """(S, pps): the kernel's grid is (batch, hkv, S), split s taking table
+    pages [s * pps, (s + 1) * pps).  At least two blocks an SM where the
+    table allows it (S = 1 once batch * hkv >= 2 * n_sm); pps is rounded up,
+    and S re-derived from it so that no split is past the table.  It reads
+    shapes only: the lengths stay on the card."""
+    if batch * hkv >= 2 * n_sm:
+        return 1, pages
+    s = min(pages, -(-2 * n_sm // (batch * hkv)))
+    pps = -(-pages // s)
+    return -(-pages // pps), pps
+
+
+def _smem_bytes(rep: int, hd: int, kv_bytes: int, pps: int) -> int:
+    """The split block's dynamic shared memory (``smem_bytes`` in the
+    source): table entries, the warps' rings of 2 KB K and V chunks, and
+    the warps' (m, l, acc) states."""
+    g = 16 if hd <= 128 else 32                    # lanes of a token
+    chunk_tokens = 32 // g * (8 // kv_bytes)
+    return (-(-4 * pps // 16) * 16 + _WARPS * _STAGES * 2 * chunk_tokens * hd * kv_bytes
+            + 4 * _WARPS * rep * (hd + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -106,30 +145,35 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the paged_attention kernel takes contiguous tensors only")
     b, hkv, rep, hd = q.shape
-    n_blocks, blk = k_pages.shape[0], k_pages.shape[1]
+    n_blocks, blk, pages = k_pages.shape[0], k_pages.shape[1], block_tables.shape[1]
+    n_splits, pps = split_plan(b, hkv, pages, _sm_count(q.device.index or 0))
     esz = k_pages.element_size()
-    smem = -(-4 * (rep * hd + rep * blk + 3 * rep) // 16) * 16 + 4 * blk * hd * esz
+    smem = _smem_bytes(rep, hd, esz, pps)
     if (q.dtype, k_pages.dtype) not in _KERNEL_DTYPES or rep not in _KERNEL_REPS or \
-            hd > 256 or (hd * esz) % 16 or smem > 227 * 1024:
+            hd > 256 or (hd * esz) % 16 or smem > _SMEM_LIMIT:
         raise ValueError(f"the kernel takes (q, arena) dtypes in bf16/bf16, f32/f32, "
                          f"f32/bf16, rep in {_KERNEL_REPS}, hd <= 256 with 16-byte K/V "
                          f"rows, and at most 227 KB of shared memory; got {q.dtype}/"
-                         f"{k_pages.dtype}, rep={rep}, hd={hd}, block={blk} ({smem} B)")
+                         f"{k_pages.dtype}, rep={rep}, hd={hd}, {pps} pages a split "
+                         f"({smem} B)")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the kernel takes 16-byte aligned K/V arenas")
     out = torch.empty_like(q)
+    # each split's acc, then its (m, l), in f32; none when one split writes out
+    ws = torch.empty(b * hkv * n_splits * rep * (hd + 2), dtype=torch.float32,
+                     device=q.device) if n_splits > 1 else None
     lib = _build.load("paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + \
+            [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], q.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, hkv, rep, hd, n_blocks, blk,
-             block_tables.shape[1], 1.0 / math.sqrt(hd),
+             lengths.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+             b, hkv, rep, hd, n_blocks, blk, pages, pps, 1.0 / math.sqrt(hd),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

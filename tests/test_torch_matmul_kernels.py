@@ -127,8 +127,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ops.matmul(x.half(), x.half())                     # the tensor-core route's inputs
     ops.matmul(x, x)
     ops.matmul_acc(x.half(), x.half(), x.clone())
+    ops.matmul_acc(x, x, x.clone())
     assert km.launches == before                       # the CPU runs the plain versions
-    assert set(km.launches) == {"matmul", "matmul_f16_wgmma", "matmul_acc"}
+    assert set(km.launches) == {"matmul", "matmul_f16_wgmma", "matmul_acc",
+                                "matmul_acc_f16_simt"}
     with pytest.raises(ValueError):
         ops.matmul(x, torch.ones((5, 4)))
     with pytest.raises(TypeError):
@@ -180,3 +182,56 @@ def test_tma_alignment_of_views():
     check(blk[:, 8:40])
     with pytest.raises(ValueError, match="16-byte aligned base"):
         check(blk[:, 1:])
+
+
+@pytest.mark.parametrize("dtype,route,counter", [
+    (torch.float32, "tma", "matmul_acc"),
+    (torch.float16, "simt", "matmul_acc_f16_simt"),
+])
+def test_matmul_acc_route_and_counter(dtype, route, counter):
+    """f32 matmul_acc goes to the TMA-fed CUDA-core tile (IEEE f32, counted
+    as "matmul_acc", the distributed path's count), f16 to the register-
+    staged CUDA-core tile, counted apart."""
+    assert km._route_acc(dtype) == route
+    assert counter in km.launches
+    other = {"matmul_acc", "matmul_acc_f16_simt"} - {counter}
+    assert other <= set(km.launches)
+
+
+def _panel_views(n: int = 8192):
+    """The (A, B) operands that the bodies hand to ``mm_acc`` at size n, as
+    each body slices its blocks (meta tensors: addresses from offsets, no
+    storage): SUMMA and Cannon on 2x4 (panels of width n/4 of the (n/2,
+    n/4) blocks), pipelined SUMMA on 1x8 (panels of width n/8), 2.5D Cannon
+    on 2x2x2 (whole (n/2, n/2) blocks)."""
+    def blk(r, c):
+        return torch.empty((r, c), device="meta")
+    views = []
+    for name, (ar, ac), (br, bc), L, qx, qy in (
+            ("summa/cannon 2x4", (n // 2, n // 4), (n // 2, n // 4), 4, 2, 4),
+            ("pipelined 1x8", (n, n // 8), (n, n // 8), 8, 1, 8)):
+        a_blk, b_blk = blk(ar, ac), blk(br, bc)
+        w = ac // (L // qy)
+        views += [(f"{name} A panel {s}", a_blk[:, s * w:(s + 1) * w]) for s in range(L // qy)]
+        views += [(f"{name} B panel {s}", b_blk[s * w:(s + 1) * w, :]) for s in range(L // qx)]
+    views += [("2.5D block", blk(n // 2, n // 2))]
+    return views
+
+
+def test_matmul_acc_alignment_of_the_bodies_panel_views():
+    """Every f32 operand view of the distributed bodies at n = 8192 is one
+    TMA reads (16-byte aligned base and row stride); a view one or two
+    columns off a 16-byte boundary raises, and is never sent to another
+    kernel."""
+    views = _panel_views()
+    assert len(views) == 1 + 2 + 1 + 8 + 1
+    for name, t in views:
+        km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)
+    a_blk = torch.empty((4096, 2048), device="meta")
+    for off in (1, 2):
+        t = a_blk[:, off:off + 1024]
+        with pytest.raises(ValueError, match="16-byte aligned base"):
+            km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)
+    t = torch.empty((64, 1030), device="meta")[:, :1024]          # 4120-byte rows
+    with pytest.raises(ValueError, match="row stride"):
+        km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)

@@ -7,6 +7,8 @@ kernel itself runs only on the card (``chip_smoke.py`` compares it with the
 plain version there); here the wrapper must take the plain version because
 the tensors lie on the CPU.
 """
+import inspect
+import math
 import os
 import subprocess
 import sys
@@ -135,3 +137,125 @@ def test_module_imports_without_nvcc_or_triton():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "0"]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split-KV arithmetic, modelled in PyTorch on the CPU
+
+def _split_model(q, k_pages, v_pages, block_tables, lengths, pps, chunk=2):
+    """What the CUDA kernel computes, in f32: the table is cut into splits
+    of ``pps`` pages; each split folds its pages, in chunks of ``chunk``
+    positions that never cross a page, into an online-softmax state
+    (m, l, acc) with one rescale per chunk, as a lane group does, in the
+    log2 domain (q scaled by scale * log2 e, exp2 throughout); the combine
+    weighs each split by 2^(m_s - max m), sums, and divides by the summed l
+    (0 where it is 0).  Dead (-1 or >= N) entries and positions at or past
+    the length are masked, never read into the sums."""
+    b, hkv, rep, hd = q.shape
+    n_blocks, blk = k_pages.shape[:2]
+    pages = block_tables.shape[1]
+    n_splits = -(-pages // pps)
+    idx = block_tables.long().clamp(0, n_blocks - 1)
+    k = k_pages[idx].reshape(b, pages * blk, hkv, hd).float()
+    v = v_pages[idx].reshape(b, pages * blk, hkv, hd).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", q.float() * (math.log2(math.e) / math.sqrt(hd)), k)
+    live = ((block_tables >= 0) & (block_tables < n_blocks)).repeat_interleave(blk, dim=1)
+    mask = (torch.arange(pages * blk)[None] < lengths.long()[:, None]) & live
+    parts = []
+    for sp in range(n_splits):
+        m = torch.full((b, hkv, rep), pa.NEG_INF)
+        l = torch.zeros((b, hkv, rep))
+        acc = torch.zeros((b, hkv, rep, hd))
+        for page in range(sp * pps, min((sp + 1) * pps, pages)):
+            for lo in range(page * blk, (page + 1) * blk, chunk):
+                hi = min(lo + chunk, (page + 1) * blk)
+                ok = mask[:, None, None, lo:hi]
+                sc = s[..., lo:hi].masked_fill(~ok, pa.NEG_INF)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.where(ok, torch.exp2(sc - m_new[..., None]), torch.zeros(()))
+                l = alpha * l + p.sum(-1)
+                acc = alpha[..., None] * acc + torch.einsum("bgrk,bkgd->bgrd", p, v[:, lo:hi])
+                m = m_new
+        parts.append((m, l, acc))
+    m_all = torch.stack([p[0] for p in parts])
+    w = torch.exp2(m_all - m_all.amax(0))
+    l = (w * torch.stack([p[1] for p in parts])).sum(0)
+    acc = (w[..., None] * torch.stack([p[2] for p in parts])).sum(0)
+    return torch.where(l[..., None] == 0, torch.zeros(()), acc / torch.where(
+        l == 0, torch.ones(()), l)[..., None])
+
+
+@pytest.mark.parametrize("pps", [6, 2, 1])                   # S = 1, 3, P
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_split_model_matches_jax_ref(pps, chunk):
+    """Every page below each length live: the split-and-combine arithmetic
+    against ``ref.paged_attention`` in f32, with splits past a row's length
+    (empty) and partial last pages."""
+    case = _case(5, b=4, hkv=2, rep=3, hd=16, n_blocks=24, blk=4, pages=6)
+    got = _split_model(*_torch(case), pps=pps, chunk=chunk)
+    want = ref.paged_attention(*_jax(case))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pps", [6, 2, 1])                   # S = 1, 3, P
+def test_split_model_matches_pallas_interpret(pps):
+    """Against the TPU kernel in interpret mode, with an all-dead row
+    (exactly 0), a dead entry below a row's length (with pps = 1 a split
+    that is empty though below the length) and partial last pages."""
+    case = _case(6, b=4, hkv=2, rep=2, hd=16, n_blocks=24, blk=4, pages=6,
+                 dead_row=2, hole=(0, 1))
+    got = _split_model(*_torch(case), pps=pps)
+    want = paged_attention_pallas(*_jax(case), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert torch.count_nonzero(got[2]) == 0
+    assert torch.isfinite(got).all()
+
+
+def test_split_model_empty_splits_weigh_nothing():
+    """A row live only in its first page: every later split is empty
+    (m = -1e30, l = 0) and must not change the result or make a NaN; a row
+    whose splits are all empty (length 0) writes exactly 0."""
+    q, k, v, t, ln = _torch(_case(7, b=2, hkv=1, rep=1, hd=8, n_blocks=12, blk=4,
+                                  pages=6))
+    ln = torch.tensor([3, 0], dtype=torch.int32)
+    one = _split_model(q, k, v, t, ln, pps=6)
+    for pps in (2, 1):
+        got = _split_model(q, k, v, t, ln, pps=pps)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, one, atol=1e-6, rtol=1e-6)
+    assert torch.count_nonzero(one[1]) == 0
+    np.testing.assert_allclose(one.numpy(), pa.paged_attention_ref(q, k, v, t, ln).numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_split_plan_covers_every_page_once():
+    """The host's split choice: S >= 1 splits of pps pages cover each table
+    page exactly once with no split past the table; the serve shape (B 4,
+    Hkv 8, P 36) puts a block on every one of 132 SMs; S = 1 once B * Hkv
+    >= 2 * 132.  It takes shapes only, never the lengths."""
+    assert list(inspect.signature(pa.split_plan).parameters) == ["batch", "hkv", "pages",
+                                                                 "n_sm"]
+    for batch in (1, 2, 4, 17, 33, 64, 200):
+        for hkv in (1, 2, 8):
+            for pages in (1, 2, 3, 7, 36, 512, 1000):
+                for n_sm in (132, 114, 1):
+                    n_splits, pps = pa.split_plan(batch, hkv, pages, n_sm)
+                    assert n_splits >= 1 and pps >= 1
+                    covered = [p for sp in range(n_splits)
+                               for p in range(sp * pps, min((sp + 1) * pps, pages))]
+                    assert covered == list(range(pages))
+                    assert (n_splits - 1) * pps < pages
+                    if batch * hkv >= 2 * n_sm:
+                        assert n_splits == 1
+    n_splits, pps = pa.split_plan(4, 8, 36, 132)
+    assert n_splits * 4 * 8 >= 132 and (n_splits, pps) == (9, 4)
+    assert pa.split_plan(1, 8, 512, 132)[0] * 8 >= 132
+    assert pa.split_plan(64, 8, 36, 132) == (1, 36)
+
+
+def test_serve_shape_block_leaves_room_for_four_on_an_sm():
+    """The split block's shared memory at the serve shape (rep 3, hd 128,
+    bf16 arenas, 4 pages a split) lets four blocks share an SM's 228 KB
+    (1 KB of it reserved a block), so the 288 blocks run in one wave."""
+    assert 4 * (pa._smem_bytes(3, 128, 2, 4) + 1024) <= 228 * 1024
