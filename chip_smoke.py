@@ -20,18 +20,22 @@ error:
                  B=64 rows of up to 576 tokens (one split), with dead rows,
                  -1 entries and partial pages; per shape the split count,
                  and the split and combine kernels' device times from a
-                 profiler trace;
-                 matmul at 4096^3 in f32 (CUDA cores) and f16 (the wgmma
-                 kernel), f16 also ragged (1000 x 1032 x 520: TMA zero fill,
-                 bounded stores) and with f16 output, and the host cost of
-                 one f16 launch (its TMA maps) beside an f32 one; f32
-                 matmul_acc (the TMA-fed CUDA-core tile) ragged (1000 x 1032
-                 x 520) and on a column panel (lda > k), then at the SUMMA
-                 2x4, pipelined 1x8 and 2.5D 2x2x2 block shapes of n = 8192
-                 (in place, no (m, n) temporary), and with f16 inputs (the
-                 SIMT tile) against c.addmm_ of the widened inputs; minplus
-                 at 4096^3 with integer weights and +inf entries (exactly
-                 equal);
+                 profiler trace; then the serve shape with scale=0.05;
+                 matmul at 4096^3 in f32 (the TMA-fed FFMA tile) and f16
+                 (the wgmma tile), both also ragged (1000 x 1032 x 520: TMA
+                 zero fill, bounded stores) and with f16 output, and the
+                 host cost of one launch (its TMA maps); matmul_acc in
+                 place, ragged with f32 and with f16 inputs, on a column
+                 panel (lda > k), with an f16 C from either input dtype;
+                 one view of each op and input dtype that TMA cannot read
+                 (f16 (64x12)x(12x64), x[:, 1:] panels, f32 at 250^3),
+                 which must go to the SIMT tile and nothing else; f32
+                 matmul_acc at the SUMMA 2x4, pipelined 1x8 and 2.5D 2x2x2
+                 block shapes of n = 8192 and f16-input matmul_acc (the
+                 wgmma tile) at the SUMMA shape and at 4096^3 (in place, no
+                 (m, n) temporary, timed against c.addmm_ / torch.addmm
+                 with out_dtype=f32); minplus at 4096^3 with integer
+                 weights and +inf entries (exactly equal);
                  flash attention at the fused prefill's shape (q (1, 24,
                  512, 128), k/v (1, 8, 512, 128), causal), a ragged causal
                  575, L = 8192 causal, Mixtral's window 4096 with 48/8
@@ -55,13 +59,14 @@ error:
                  gloo rank processes sharing ``cuda:0``: DNS on 2x2x2, SUMMA
                  and Cannon on 2x4, pipelined SUMMA on 1x8 and 2.5D Cannon on
                  2x2x2 through their ``*_kernel`` entry points, DNS on 2x2x2
-                 again with f16 inputs and f32 output (the tensor-core
-                 matmul: exactly 8 launches), and ``generic_matmul`` on 8;
-                 each against ``torch.matmul`` of the whole matrices (of the
-                 f16 values widened, for the f16 run), the kernels' launch
-                 counts against the algorithm's, and per algorithm its wall
-                 time, the device time of its kernel launches and the bytes
-                 it staged through the host;
+                 and SUMMA on 2x4 again with f16 inputs and f32 output (the
+                 tensor-core tile: exactly 8 matmul and 32 matmul_acc
+                 launches), and ``generic_matmul`` on 8; each against
+                 ``torch.matmul`` of the whole matrices (of the f16 values
+                 widened, for the f16 runs), the kernels' launch counts
+                 against the algorithm's, and per algorithm its wall time,
+                 the device time of its kernel launches and the bytes it
+                 staged through the host;
   8. fw ranks -- blocked Floyd-Warshall at n = 8192 on 2x2 ranks with the
                  minplus kernel (24 launches), equal to the plain-version run
                  and to the single-device oracle; the faithful Algorithm 3
@@ -356,6 +361,28 @@ def phase_kernels() -> dict:
                   f"copies (cold L2)", flush=True)
             del case, q, k, v
             torch.cuda.empty_cache()
+    # a scale other than 1/sqrt(hd) (paged_attention_pallas's scale=) at the
+    # serve shape
+    _, b, pages, lengths, dead_rows, holes = PAGED_CASES[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        case = _paged_case(dtype, b, pages, lengths, dead_rows, holes, seed=1)
+        before = pa.launches
+        got = pa.paged_attention(*case, scale=0.05)
+        want = pa.paged_attention_ref(*case, scale=0.05)
+        default = pa.paged_attention_ref(*case)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL[dtype]
+        err = (got.float() - want.float()).abs().max().item()
+        moved = (default.float() - want.float()).abs().max().item()
+        print(f"[kernels] paged_attention serve {str(dtype)[6:]} scale=0.05: max|kernel-plain| "
+              f"{err:.3e} (atol=rtol={tol:g}); the default scale's result is {moved:.3e} away",
+              flush=True)
+        if pa.launches != before + 1 or not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) or \
+                not moved > tol:
+            fail(f"paged_attention scale=0.05 {dtype}: max |kernel - plain| = {err:.3e}, "
+                 f"{pa.launches - before} launches, or the scale changed nothing")
+        del case, got, want, default
     return rec
 
 
@@ -694,6 +721,22 @@ def _bound(nbytes: float, ops: float, ops_s: float):
         bytes_ms, ops_ms
 
 
+def _counted(km, fn):
+    """Run ``fn``; return its result and the launch counters that moved."""
+    before = dict(km.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in km.launches.items() if v != before[k]}
+
+
+def _tc_rel_bound(k: int) -> float:
+    """Normwise bound between a tensor-core sum of k products of f16 values
+    and the plain f32 one: sqrt(k) * (2^-23 + 2^-24), the tensor cores' f32
+    adds truncating (a unit roundoff of 2^-23) and the plain version's
+    rounding (2^-24)."""
+    return k ** 0.5 * (2.0 ** -23 + 2.0 ** -24)
+
+
 def phase_tile_kernels() -> dict:
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import minplus as kmp
@@ -704,22 +747,38 @@ def phase_tile_kernels() -> dict:
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    # matmul at 4096^3, f32 in (CUDA cores) and f16 in (tensor cores), f32 out
+    def check(label, got, want, tol_dtype, counted, key, rel_bound=None) -> float:
+        """Kernel against plain within the reference's tolerance for
+        ``tol_dtype`` (and, for tensor-core sums, a normwise bound), after one
+        launch of ``key`` and of no other kernel."""
+        rtol, atol = TILE_TOL[tol_dtype]
+        diff = got.float() - want.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / want.float().norm()).item()
+        print(f"[kernels] {label} ({key}): max|kernel-plain| {err:.3e} (rtol {rtol:g}, atol "
+              f"{atol:g}); normwise {rel:.3e}"
+              f"{f' (bound {rel_bound:.3e})' if rel_bound else ''}; launches {counted}",
+              flush=True)
+        if counted != {key: 1}:
+            fail(f"{label}: launches {counted}, want one {key} launch and no other")
+        if got.dtype != want.dtype or not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol) or \
+                (rel_bound is not None and not rel <= rel_bound):
+            fail(f"{label}: max |kernel - plain| = {err:.3e} beyond rtol {rtol:g}, atol "
+                 f"{atol:g}, or normwise {rel:.3e} beyond its bound (or a wrong dtype or "
+                 f"a non-finite entry)")
+        return err
+
+    # matmul at 4096^3, f32 in (the TMA-fed FFMA tile) and f16 in (the wgmma
+    # tile), f32 out, timed
     n = 4096
     for dtype in (torch.float32, torch.float16):
         a, b = rnd(n, n, dtype=dtype), rnd(n, n, dtype=dtype)
-        route = km._route(dtype)
-        key = "matmul_f16_wgmma" if route == "wgmma" else "matmul"
-        before = km.launches[key]
-        got, want = km.matmul(a, b), km.matmul_ref(a, b)
-        torch.cuda.synchronize()
-        if km.launches[key] != before + 1:
-            fail(f"matmul {dtype}: route {route} did not count a {key} launch")
-        rtol, atol = TILE_TOL[dtype]
-        err = (got - want).abs().max().item()
-        if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=rtol, atol=atol):
-            fail(f"matmul {dtype}: max |kernel - plain| = {err:.3e} beyond rtol {rtol:g}, "
-                 f"atol {atol:g}")
+        key = km._route("matmul", dtype, torch.float32, True)
+        got, counted = _counted(km, lambda: km.matmul(a, b))
+        err = check(f"matmul {str(dtype)[6:]} {n}^3", got, km.matmul_ref(a, b), dtype,
+                    counted, key)
+        del got
         esz = a.element_size()
         nbytes = 2 * n * n * esz + n * n * 4
         cases = _copies(lambda: (a.clone(), b.clone()), 2 * n * n * esz)
@@ -730,36 +789,30 @@ def phase_tile_kernels() -> dict:
         bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * n ** 3, PEAK_OPS_S[dtype])
         rec[("matmul", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
-        print(f"[kernels] matmul {str(dtype)[6:]} {n}^3 ({route} kernel): max|kernel-plain| "
-              f"{err:.3e} (rtol {rtol:g}, atol {atol:g}); kernel {ms:.3f} ms "
+        print(f"[kernels] matmul {str(dtype)[6:]} {n}^3 ({key} kernel): kernel {ms:.3f} ms "
               f"({2 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-              f"torch.matmul {library_ms:.3f} ms{' (f16 out, tensor cores)' if esz == 2 else ''}; "
-              f"bound {bound_ms:.3f} ms = max(2*{n}^3 = {2 * n ** 3 / 1e9:.1f} GFLOP / "
-              f"{PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = {ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / "
-              f"{PEAK_BYTES_S / 1e12:g} TB/s = {bytes_ms:.3f} ms), by {by}", flush=True)
+              f"torch.matmul {library_ms:.3f} ms{' (f16 out, tensor cores)' if esz == 2 else ''}"
+              f" (kernel / torch.matmul {ms / library_ms:.2f}); bound {bound_ms:.3f} ms = "
+              f"max(2*{n}^3 = {2 * n ** 3 / 1e9:.1f} GFLOP / {PEAK_OPS_S[dtype] / 1e12:g} "
+              f"TFLOP/s = {ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / {PEAK_BYTES_S / 1e12:g} TB/s "
+              f"= {bytes_ms:.3f} ms), by {by}", flush=True)
 
-    # f16 in: a ragged shape (TMA zero fill past M, N and K; bounded stores)
-    # and f16 out, against the plain version
-    for (m, k, nn), out_dtype in (((1000, 1032, 520), torch.float32),
-                                  ((1000, 1032, 520), torch.float16),
-                                  ((n, n, n), torch.float16)):
-        a, b = rnd(m, k, dtype=torch.float16), rnd(k, nn, dtype=torch.float16)
-        got = km.matmul(a, b, out_dtype=out_dtype)
-        want = km.matmul_ref(a, b, out_dtype=out_dtype)
-        torch.cuda.synchronize()
-        rtol, atol = TILE_TOL[torch.float16]
-        err = (got.float() - want.float()).abs().max().item()
-        ok = (got.dtype == out_dtype and torch.isfinite(got).all()
-              and torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
-        print(f"[kernels] matmul f16 ({m}x{k})x({k}x{nn}) -> {str(out_dtype)[6:]} (wgmma "
-              f"kernel): max|kernel-plain| {err:.3e} (rtol {rtol:g}, atol {atol:g})",
-              flush=True)
-        if not ok:
-            fail(f"matmul f16 ({m}, {k}, {nn}) -> {out_dtype}: max |kernel - plain| = "
-                 f"{err:.3e} beyond rtol {rtol:g}, atol {atol:g} (or wrong dtype)")
+    # both input dtypes: a ragged shape (TMA zero fill past M, N and K;
+    # bounded stores) and f16 out, against the plain version
+    for dtype in (torch.float32, torch.float16):
+        key = km._route("matmul", dtype, torch.float32, True)
+        for (m, k, nn), out_dtype in (((1000, 1032, 520), torch.float32),
+                                      ((1000, 1032, 520), torch.float16),
+                                      ((n, n, n), torch.float16)):
+            a, b = rnd(m, k, dtype=dtype), rnd(k, nn, dtype=dtype)
+            got, counted = _counted(km, lambda: km.matmul(a, b, out_dtype=out_dtype))
+            check(f"matmul {str(dtype)[6:]} ({m}x{k})x({k}x{nn}) -> {str(out_dtype)[6:]}", got,
+                  km.matmul_ref(a, b, out_dtype=out_dtype),
+                  torch.float16 if torch.float16 in (dtype, out_dtype) else torch.float32,
+                  counted, key)
 
-    # host cost of one launch through the wrapper: the f16 route encodes two
-    # TMA maps in its C entry on every launch, the f32 route none
+    # host cost of one launch through the wrapper; both TMA routes encode two
+    # TMA maps in their C entry on every launch
     host_us = {}
     for dtype in (torch.float16, torch.float32):
         a, b = rnd(256, 256, dtype=dtype), rnd(256, 256, dtype=dtype)
@@ -772,83 +825,123 @@ def phase_tile_kernels() -> dict:
         host_us[dtype] = (time.perf_counter() - t1) / HOST_LAUNCHES * 1e6
         torch.cuda.synchronize()
     print(f"[kernels] matmul host time a launch (256^3, {HOST_LAUNCHES} launches, wrapper "
-          f"checks included): f16 (TMA maps encoded in the C entry) "
-          f"{host_us[torch.float16]:.1f} us, f32 (no maps) {host_us[torch.float32]:.1f} us",
-          flush=True)
+          f"checks and two TMA maps encoded in the C entry included): f16 "
+          f"{host_us[torch.float16]:.1f} us, f32 {host_us[torch.float32]:.1f} us", flush=True)
 
-    # f32 matmul_acc (the TMA-fed CUDA-core tile), in place, against the
-    # plain version: a ragged shape (partial tiles in M, N and K: TMA zero
-    # fill, bounded C traffic) and a column panel of a wider block (lda > k,
-    # as summa_body passes)
+    # matmul_acc in place against the plain version: a ragged shape (partial
+    # tiles in M, N and K: TMA zero fill, bounded C traffic) with f32 and with
+    # f16 inputs, a column panel of a wider block (lda > k, as summa_body
+    # passes), and an f16 C from either input dtype
     blk = rnd(2048, 4096)
-    for label, a, b, c in (("ragged (1000x1032)x(1032x520)", rnd(1000, 1032), rnd(1032, 520),
-                            rnd(1000, 520)),
-                           ("column panel A[:, 2048:3072] of a (2048, 4096) block",
-                            blk[:, 2048:3072], rnd(1024, 2048), rnd(2048, 2048))):
+    r16 = {"dtype": torch.float16}
+    for label, a, b, c in (
+            ("f32 in ragged (1000x1032)x(1032x520)", rnd(1000, 1032), rnd(1032, 520),
+             rnd(1000, 520)),
+            ("f32 in column panel A[:, 2048:3072] of a (2048, 4096) block", blk[:, 2048:3072],
+             rnd(1024, 2048), rnd(2048, 2048)),
+            ("f16 in ragged (1000x1032)x(1032x520)", rnd(1000, 1032, **r16),
+             rnd(1032, 520, **r16), rnd(1000, 520)),
+            ("f16 in, f16 C (1000x1032)x(1032x520)", rnd(1000, 1032, **r16),
+             rnd(1032, 520, **r16), rnd(1000, 520, **r16)),
+            ("f32 in, f16 C (1000x1032)x(1032x520)", rnd(1000, 1032), rnd(1032, 520),
+             rnd(1000, 520, **r16))):
+        key = km._route("matmul_acc", a.dtype, c.dtype, True)
         want = km.matmul_acc_ref(a, b, c.clone())
-        before = dict(km.launches)
-        got = km.matmul_acc(a, b, c)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        counted = {k_: km.launches[k_] - before[k_] for k_ in km.launches}
-        print(f"[kernels] matmul_acc f32 {label} (lda {a.stride(0)}): in place "
-              f"{got.data_ptr() == c.data_ptr()}; launches {counted}; max|kernel-plain| "
-              f"{err:.3e} (rtol 1e-4, atol 1e-3)", flush=True)
-        if got.data_ptr() != c.data_ptr() or counted["matmul_acc"] != 1 or \
-                not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"matmul_acc f32 {label}: not in place, not one TMA-tile launch, or max "
-                 f"|kernel - plain| = {err:.3e} beyond rtol 1e-4, atol 1e-3")
+        got, counted = _counted(km, lambda: km.matmul_acc(a, b, c))
+        if got.data_ptr() != c.data_ptr():
+            fail(f"matmul_acc {label}: the result is not c's storage")
+        f16 = torch.float16 in (a.dtype, c.dtype)
+        check(f"matmul_acc {label} (lda {a.stride(0)}), in place", got, want,
+              torch.float16 if f16 else torch.float32, counted, key,
+              _tc_rel_bound(a.shape[1]) if a.dtype == torch.float16 and
+              c.dtype == torch.float32 else None)
     del blk
 
+    # one view of each op and input dtype that TMA cannot read: the SIMT
+    # tile's route, chosen from the view before the launch (never a
+    # fallback), against the plain version
+    wide16, wide32 = rnd(2048, 1025, **r16), rnd(1000, 1033)
+    for label, op, args in (
+            ("matmul f16 (64x12)x(12x64), 24-byte rows", "matmul",
+             (rnd(64, 12, **r16), rnd(12, 64, **r16))),
+            ("matmul f32 x[:, 1:] of (1000, 1033) times (1032x520), base 4 B off", "matmul",
+             (wide32[:, 1:], rnd(1032, 520))),
+            ("matmul_acc f16 in x[:, 1:] of (2048, 1025) times (1024x2048), base 2 B off",
+             "matmul_acc", (wide16[:, 1:], rnd(1024, 2048, **r16), rnd(2048, 2048))),
+            ("matmul_acc f32 250^3, 1000-byte rows", "matmul_acc",
+             (rnd(250, 250), rnd(250, 250), rnd(250, 250)))):
+        a = args[0]
+        key = km._route(op, a.dtype, torch.float32, False)
+        tma = km._route(op, a.dtype, torch.float32, True)
+        if km.tma_aligned(a.shape, a.stride(), a.data_ptr(), a.element_size()):
+            fail(f"{label}: TMA reads this view; the case is meant to be one it cannot")
+        if op == "matmul":
+            want = km.matmul_ref(*args)
+            got, counted = _counted(km, lambda: km.matmul(*args))
+        else:
+            want = km.matmul_acc_ref(args[0], args[1], args[2].clone())
+            got, counted = _counted(km, lambda: km.matmul_acc(*args))
+        check(f"{label}: misaligned, so not {tma}", got, want, a.dtype, counted, key)
+    del wide16, wide32
+
     # matmul_acc at the SUMMA 2x4 and pipelined 1x8 block shapes of n = 8192
-    # and the 2.5D Cannon 2x2x2 block shape, f32 (TMA tile); then f16 inputs
-    # (the SIMT tile) at the SUMMA shape against c.addmm_ of the widened
-    # inputs
+    # and the 2.5D Cannon 2x2x2 block shape with f32 inputs (the FFMA tile);
+    # with f16 inputs (the wgmma tile) at the SUMMA shape (the f16 SUMMA
+    # run's panel step) and at 4096^3; in place, timed
     for m, k, nn, dtype in ((4096, 2048, 2048, torch.float32), (8192, 1024, 1024, torch.float32),
                             (4096, 4096, 4096, torch.float32),
-                            (4096, 2048, 2048, torch.float16)):
+                            (4096, 2048, 2048, torch.float16),
+                            (4096, 4096, 4096, torch.float16)):
         a, b, c = rnd(m, k, dtype=dtype), rnd(k, nn, dtype=dtype), rnd(m, nn)
         want = km.matmul_acc_ref(a, b, c.clone())
-        key = "matmul_acc" if km._route_acc(dtype) == "tma" else "matmul_acc_f16_simt"
-        before = km.launches[key]
+        key = km._route("matmul_acc", dtype, torch.float32, True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        got = km.matmul_acc(a, b, c)
-        torch.cuda.synchronize()
+        got, counted = _counted(km, lambda: km.matmul_acc(a, b, c))
         grew = torch.cuda.max_memory_allocated() - base
-        if km.launches[key] != before + 1:
-            fail(f"matmul_acc {dtype} ({m}, {k}, {nn}): no {key} launch counted")
         if got.data_ptr() != c.data_ptr():
             fail(f"matmul_acc ({m}, {k}, {nn}): the result is not c's storage")
         if grew >= m * nn * 4:
             fail(f"matmul_acc ({m}, {k}, {nn}): device memory grew {grew} B during the "
                  f"call, an (m, n) temporary is {m * nn * 4} B")
-        err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"matmul_acc {dtype} ({m}, {k}, {nn}): max |kernel - plain| = {err:.3e} "
-                 f"beyond rtol 1e-4, atol 1e-3")
+        tensor_cores = dtype == torch.float16
+        err = check(f"matmul_acc {str(dtype)[6:]} in ({m}x{k})x({k}x{nn}), in place "
+                    f"(memory grew {grew} B < {m * nn * 4} B)", got, want, dtype, counted, key,
+                    _tc_rel_bound(k) if tensor_cores else None)
         esz = a.element_size()
         nbytes = (m * k + k * nn) * esz + 2 * m * nn * 4
         cases = _copies(lambda: (a.clone(), b.clone(), c.clone()), nbytes)
         ms = device_ms([lambda c=c: km.matmul_acc(*c) for c in cases])
         plain_ms = device_ms([lambda c=c: km.matmul_acc_ref(*c) for c in cases])
-        wide = [(x.float(), y.float(), z) for x, y, z in cases]
-        library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in wide])
-        del cases, wide
-        bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * m * k * nn, PEAK_OPS_S[torch.float32])
-        if dtype == torch.float32:
-            rec[("matmul_acc", (m, k, nn))] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                   library_ms=library_ms, bound_ms=bound_ms,
-                                                   bound_by=by)
+        library = "c.addmm_"
+        if tensor_cores:
+            # cuBLAS's addmm with out_dtype (aten::addmm.dtype); the yardstick
+            # only, the port never calls it
+            library = "torch.addmm(c, a, b, out_dtype=f32)"
+            try:
+                library_ms = device_ms([lambda c=c: torch.addmm(c[2], c[0], c[1],
+                                                                out_dtype=torch.float32)
+                                        for c in cases])
+            except RuntimeError as e:
+                library = (f"c.addmm_ of the widened inputs (addmm with out_dtype refused: "
+                           f"{str(e).splitlines()[0]})")
+                wide = [(x.float(), y.float(), z) for x, y, z in cases]
+                library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in wide])
+                del wide
+        else:
+            library_ms = device_ms([lambda c=c: c[2].addmm_(c[0], c[1]) for c in cases])
+        del cases
+        bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 2 * m * k * nn, PEAK_OPS_S[dtype])
+        rec[(f"matmul_acc_{str(dtype)[6:]}", (m, k, nn))] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=by)
         print(f"[kernels] matmul_acc {str(dtype)[6:]} in ({m}x{k})x({k}x{nn}) ({key} kernel): "
-              f"in place (result at c's address, memory grew {grew} B < {m * nn * 4} B); "
-              f"max|kernel-plain| {err:.3e} (rtol 1e-4, atol 1e-3); kernel {ms:.3f} ms "
-              f"({2 * m * k * nn / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, c.addmm_"
-              f"{' of the widened inputs' if esz == 2 else ''} {library_ms:.3f} ms "
-              f"(kernel / addmm_ {ms / library_ms:.2f}); bound {bound_ms:.3f} ms = "
-              f"max(2*{m}*{k}*{nn} = {2 * m * k * nn / 1e9:.2f} GFLOP / 67 TFLOP/s = "
-              f"{ops_ms:.3f} ms, {nbytes / 1e6:.0f} MB / 3.35 TB/s = {bytes_ms:.3f} ms), "
+              f"kernel {ms:.4f} ms ({2 * m * k * nn / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, {library} {library_ms:.4f} ms (kernel / library "
+              f"{ms / library_ms:.2f}); bound {bound_ms:.4f} ms = max(2*{m}*{k}*{nn} = "
+              f"{2 * m * k * nn / 1e9:.2f} GFLOP / {PEAK_OPS_S[dtype] / 1e12:g} TFLOP/s = "
+              f"{ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB / 3.35 TB/s = {bytes_ms:.4f} ms), "
               f"by {by}", flush=True)
 
     # minplus at 4096^3: integer weights, some +inf; exact
@@ -890,7 +983,7 @@ MM_REL_BOUND = 2 * N_MM ** 0.5 * 2.0 ** -24
 # the same for f16 inputs (products exact in f32) summed by the tensor cores,
 # whose f32 adds truncate (a unit roundoff of 2^-23, twice round-to-nearest's),
 # against torch.matmul of the widened values: sqrt(n) * (2^-23 + 2^-24)
-MM_F16_REL_BOUND = N_MM ** 0.5 * (2.0 ** -23 + 2.0 ** -24)
+MM_F16_REL_BOUND = _tc_rel_bound(N_MM)
 
 
 def _mm_runs(C):
@@ -904,22 +997,25 @@ def _mm_runs(C):
     return [
         ("dns_matmul_kernel", C.dns_matmul_kernel, (2, 2, 2), xyz,
          lambda a, b: D.dns_body(a, b, local_matmul=ops.matmul), D.DNS_SPECS[0],
-         "matmul", 8, torch.float32),
+         "matmul_f32_ffma", 8, torch.float32),
         ("dns_matmul_kernel f16", C.dns_matmul_kernel, (2, 2, 2), xyz,
          lambda a, b: D.dns_body(a, b, local_matmul=ops.matmul), D.DNS_SPECS[0],
          "matmul_f16_wgmma", 8, torch.float16),
         ("summa_matmul_kernel", C.summa_matmul_kernel, (2, 4), ("x", "y"),
-         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32,
-         torch.float32),
+         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
+         "matmul_acc_f32_ffma", 32, torch.float32),
+        ("summa_matmul_kernel f16", C.summa_matmul_kernel, (2, 4), ("x", "y"),
+         lambda a, b: S.summa_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
+         "matmul_acc_f16_wgmma", 32, torch.float16),
         ("cannon_matmul_kernel", C.cannon_matmul_kernel, (2, 4), ("x", "y"),
-         lambda a, b: S.cannon_body(a, b, mm_acc=ops.matmul_acc), (xy, xy), "matmul_acc", 32,
-         torch.float32),
+         lambda a, b: S.cannon_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
+         "matmul_acc_f32_ffma", 32, torch.float32),
         ("summa_matmul_pipelined_kernel", C.summa_matmul_pipelined_kernel, (1, 8), ("x", "y"),
          lambda a, b: SP.summa_pipelined_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
-         "matmul_acc", 64, torch.float32),
+         "matmul_acc_f32_ffma", 64, torch.float32),
         ("cannon_matmul_25d_kernel", C.cannon_matmul_25d_kernel, (2, 2, 2), xyz,
          lambda a, b: SP.cannon_25d_body(a, b, mm_acc=ops.matmul_acc), (xy, xy),
-         "matmul_acc", 8, torch.float32),
+         "matmul_acc_f32_ffma", 8, torch.float32),
     ]
 
 
@@ -1171,12 +1267,15 @@ def main() -> None:
     kernels = [
         _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",
                 launches, rec[("serve", torch.bfloat16)]),
-        _record("matmul", csrc + "matmul.cu", ref + "matmul.py:82", counts["matmul"],
+        _record("matmul", csrc + "matmul.cu", ref + "matmul.py:82", counts["matmul_f32_ffma"],
                 tile[("matmul", torch.float32)]),
         _record("matmul_f16", csrc + "matmul.cu", ref + "matmul.py:82",
                 counts["matmul_f16_wgmma"], tile[("matmul", torch.float16)]),
-        _record("matmul_acc", csrc + "matmul.cu", ref + "matmul.py:48", counts["matmul_acc"],
-                tile[("matmul_acc", (4096, 2048, 2048))]),
+        _record("matmul_acc", csrc + "matmul.cu", ref + "matmul.py:48",
+                counts["matmul_acc_f32_ffma"], tile[("matmul_acc_float32", (4096, 2048, 2048))]),
+        _record("matmul_acc_f16", csrc + "matmul.cu", ref + "matmul.py:48",
+                counts["matmul_acc_f16_wgmma"],
+                tile[("matmul_acc_float16", (4096, 2048, 2048))]),
         _record("minplus", csrc + "minplus.cu", ref + "minplus.py:44", counts["minplus"],
                 tile[("minplus", torch.float32)]),
         _record("flash_attention", csrc + "flash_attention.cu", ref + "flash_attention.py:84",

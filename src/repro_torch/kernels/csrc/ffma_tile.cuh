@@ -1,17 +1,26 @@
-// The Hopper CUDA-core tile of f32 matmul_acc (sm_90a): C (f32) += A.B for
-// f32 A and B, in place, every product and sum IEEE f32 on the CUDA cores
-// (FFMA; no TF32, no split into TF32 terms, so the arithmetic and its
-// 67 TFLOP/s bound are those of f32).
+// The Hopper CUDA-core tile of f32 matmul and f32 matmul_acc (sm_90a):
+// C = A.B (store mode) or C += A.B in place (accumulate mode) for f32 A and
+// B read by TMA, C f32 or f16, every product and sum IEEE f32 on the CUDA
+// cores (FFMA; no TF32, no split into TF32 terms, so the arithmetic and its
+// 67 TFLOP/s bound are those of f32).  f32 stays off the tensor cores
+// because the reference's f32 bound of 1e-4 (tests/test_kernels.py), and
+// the distributed bodies' normwise 2 sqrt(n) 2^-24, hold only for f32
+// products: TF32 keeps 10 mantissa bits.
 //
-// Replaces, for f32 inputs, src/repro/kernels/matmul.py matmul_acc_pallas
-// (body _matmul_acc_kernel): the accumulator is seeded from the C tile and
-// C's buffer is the output.  f16 inputs stay on simt_tile.cuh.
+// Replaces, for f32 inputs whose views TMA can read (16-byte aligned bases
+// and row strides), src/repro/kernels/matmul.py matmul_pallas (body
+// _matmul_kernel: the accumulator starts at zero, C = acc cast to
+// out_dtype) and matmul_acc_pallas (body _matmul_acc_kernel: the
+// accumulator is seeded from the C tile widened to f32, C's buffer is the
+// output, cast back to C's dtype).  Other f32 views go to simt_tile.cuh.
 //
-// Bound: 2*M*N*K operations at the CUDA cores' 67 TFLOP/s; at the SUMMA
-// block shape (4096 x 2048).(2048 x 2048) that is 0.513 ms against 0.05 ms
-// to move A, B and C at 3.35 TB/s, so the tile is bound by operations, and
-// what it must keep off the FFMA pipe's critical path is everything else:
-// address arithmetic, loads, barriers.
+// Bound: 2*M*N*K operations at the CUDA cores' 67 TFLOP/s.  matmul at 4096^3:
+// 137.4 GFLOP, 2.051 ms against 0.06 ms to move A, B and C at 3.35 TB/s;
+// matmul_acc at the SUMMA block shape (4096 x 2048).(2048 x 2048): 0.513 ms
+// against 0.05 ms.  Both are bound by operations, and what the tile must
+// keep off the FFMA pipe's critical path is everything else: address
+// arithmetic, loads, barriers.  The f16-output and f16-C instantiations
+// have the same bound (C's bytes are fewer).
 //
 // Design: a 128 x 128 output tile per block of 8 consumer warps and one
 // producer warp.  One thread of the producer keeps a 4-stage ring of K
@@ -27,11 +36,14 @@
 // along k (a warp's two rows ty = 2w, 2w+1 land on different banks) and,
 // per k, two 16-byte vectors of B, then issues 256 FFMAs; a consumer warp
 // releases a stage with one mbarrier arrival, so there is no block barrier
-// in the K loop.  The C
-// seed and the epilogue move 16 bytes a thread where C's base and row
-// stride allow it (else one element at a time), and C is read and written
-// by the one block that owns the tile: the update is in place.  Each
-// output is C + sum_k a*b with the FFMAs in k order, as simt_tile.cuh's.
+// in the K loop.  The store mode starts the accumulator at zero; the
+// accumulate mode seeds it from C before the first wait, so the seed loads
+// overlap the first TMA stages.  The seed and the epilogue move four
+// elements a thread in one access where C's base and row stride allow it
+// (else one element at a time), and C is read and written by the one block
+// that owns the tile: the update is in place.  Each output is C + sum_k a*b
+// (or sum_k a*b) with the FFMAs in k order, as simt_tile.cuh's, rounded
+// once to C's type.
 
 #pragma once
 
@@ -48,9 +60,10 @@ constexpr int kTileA = kBM * kBK, kTileB = kBK * kBN;     // floats per stage
 constexpr size_t kSmemBytes = 1024 + static_cast<size_t>(kStages) * (kTileA + kTileB) * sizeof(float) +
                               2 * kStages * sizeof(uint64_t);
 
+template <typename TOut, bool kAcc>
 __global__ void __launch_bounds__(kThreads, 1)
-acc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-           float* __restrict__ C, int M, int N, int K, long long ldc, int c_vec) {
+tile_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            TOut* __restrict__ C, int M, int N, int K, long long ldc, int c_vec) {
   extern __shared__ uint8_t smem_raw[];
   float* sa = reinterpret_cast<float*>(hopper::align_1024(smem_raw));
   float* sb = sa + kStages * kTileA;
@@ -84,7 +97,7 @@ acc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CU
   const int tid = threadIdx.x, lane = tid & 31, tx = tid & 15, ty = tid >> 4;
   constexpr int kRowStep = 16;                       // tile-local rows ty + 16 i
 
-  // seed the accumulator from C
+  // the accumulator: zero, or seeded from C
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -93,17 +106,7 @@ acc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CU
     for (int hh = 0; hh < 2; ++hh) {
       const int c = n0 + hh * 64 + tx * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < M) {
-        const float* p = C + r * ldc + c;
-        if (c_vec && c + 3 < N) {
-          const float4 t = *reinterpret_cast<const float4*>(p);
-          v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (c + e < N) v[e] = p[e];
-        }
-      }
+      if (kAcc && r < M) hopper::load4(C + r * ldc + c, c_vec && c + 3 < N, N - c, v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][hh * 4 + e] = v[e];
     }
@@ -146,15 +149,9 @@ acc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CU
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int c = n0 + hh * 64 + tx * 4;
-      float* p = C + r * ldc + c;
-      if (c_vec && c + 3 < N) {
-        *reinterpret_cast<float4*>(p) =
-            make_float4(acc[i][hh * 4], acc[i][hh * 4 + 1], acc[i][hh * 4 + 2], acc[i][hh * 4 + 3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (c + e < N) p[e] = acc[i][hh * 4 + e];
-      }
+      const float v[4] = {acc[i][hh * 4], acc[i][hh * 4 + 1], acc[i][hh * 4 + 2],
+                          acc[i][hh * 4 + 3]};
+      hopper::store4(C + r * ldc + c, v, c_vec && c + 3 < N, N - c);
     }
   }
 }
@@ -162,7 +159,8 @@ acc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CU
 // The maps of A (K x M, box 32 x 128, 128-byte swizzle) and B (N x K, box
 // 128 x 32, no swizzle).  A dim of size 1 has no row stride to speak of; it
 // gets a padded one (TMA wants a multiple of 16 bytes).  K = 0 leaves both
-// maps zero: the kernel then loads nothing and writes C back as it was.
+// maps zero: the kernel then loads nothing and writes zeros (store mode) or
+// C as it was (accumulate mode).
 inline int make_maps(CUtensorMap* map_a, CUtensorMap* map_b, const void* a, const void* b,
                      int m, int n, int k, long long lda, long long ldb) {
   *map_a = CUtensorMap{};
@@ -182,19 +180,20 @@ inline int make_maps(CUtensorMap* map_a, CUtensorMap* map_b, const void* a, cons
   return static_cast<int>(err);
 }
 
-// C += A.B for f32 A, B (16-byte aligned bases, row strides a multiple of 4
-// elements) and f32 C with any row stride
-inline int launch_acc(const void* a, const void* b, void* c, int m, int n, int k,
-                      long long lda, long long ldb, long long ldc, cudaStream_t stream) {
-  if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0 || n == 0) return 0;
+// C = A.B (kAcc false) or C += A.B (kAcc true) for f32 A, B (16-byte
+// aligned bases, row strides a multiple of 4 elements) and C of TOut with
+// any row stride
+template <typename TOut, bool kAcc>
+int launch(const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+           long long ldb, long long ldc, cudaStream_t stream) {
   CUtensorMap map_a, map_b;
   const int err = make_maps(&map_a, &map_b, a, b, m, n, k, lda, ldb);
   if (err != 0) return err;
-  const int c_vec = reinterpret_cast<uintptr_t>(c) % 16 == 0 && ldc % 4 == 0;
+  const int c_vec = reinterpret_cast<uintptr_t>(c) % (4 * sizeof(TOut)) == 0 && ldc % 4 == 0;
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  return static_cast<int>(hopper::launch(acc_kernel, grid, kThreads, kSmemBytes, stream, map_a,
-                                         map_b, static_cast<float*>(c), m, n, k, ldc, c_vec));
+  return static_cast<int>(hopper::launch(tile_kernel<TOut, kAcc>, grid, kThreads, kSmemBytes,
+                                         stream, map_a, map_b, static_cast<TOut*>(c), m, n,
+                                         k, ldc, c_vec));
 }
 
 }  // namespace f32tile

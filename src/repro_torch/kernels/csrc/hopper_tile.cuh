@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the TMA-fed kernels (matmul.cu's f16
-// matmul and f32 matmul_acc, flash_attention.cu's bf16 flash attention):
-// TMA tensor maps built on the host, mbarrier waits with phase bits, wgmma
-// descriptors for 128-byte-swizzled tiles, and the wgmma.mma_async
-// instructions the two tensor-core kernels issue, all with an f32
-// accumulator.
+// Hopper (sm_90a) building blocks of the TMA-fed kernels (matmul.cu's
+// wgmma tile for f16 inputs and its FFMA tile for f32 inputs,
+// flash_attention.cu's bf16 flash attention): TMA tensor maps built on the
+// host, mbarrier waits with phase bits, wgmma descriptors for
+// 128-byte-swizzled tiles, the wgmma.mma_async instructions the two
+// tensor-core kernels issue, all with an f32 accumulator, and the loads and
+// stores of a matmul's C tile in f32 or f16.
 //
 // How the pieces agree.  A TMA box whose inner extent is 64 16-bit elements
 // (128 bytes) lands in shared memory as rows of 128 bytes with the 128-byte
@@ -36,6 +37,7 @@
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums: types only, no -lcuda
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -165,6 +167,78 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: a matmul's C tile, f32 or f16 in memory and f32 in registers (the
+// accumulator is seeded from C as f32 and rounded once to C's type, as
+// _matmul_acc_kernel's cin.astype(f32) and .astype(out_dtype) do).  `vec`
+// moves a row's neighbours in one access (the host checked C's base and row
+// stride for it); otherwise they move one by one, the first `n` of them.
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p, bool vec, int n) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) return *reinterpret_cast<const float2*>(p);
+    else return __half22float2(*reinterpret_cast<const __half2*>(p));
+  }
+  return make_float2(n > 0 ? to_f32(p[0]) : 0.f, n > 1 ? to_f32(p[1]) : 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y, bool vec, int n) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    else *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+    return;
+  }
+  if (n > 0) p[0] = from_f32<T>(x);
+  if (n > 1) p[1] = from_f32<T>(y);
+}
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, bool vec, int n, float (&v)[4]) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const uint2 raw = *reinterpret_cast<const uint2*>(p);
+      const __half2* h = reinterpret_cast<const __half2*>(&raw);
+      const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = e < n ? to_f32(p[e]) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[4], bool vec, int n) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      uint2 raw;
+      __half2* h = reinterpret_cast<__half2*>(&raw);
+      h[0] = __floats2half2_rn(v[0], v[1]);
+      h[1] = __floats2half2_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(p) = raw;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n) p[e] = from_f32<T>(v[e]);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-// The CUDA-core (SIMT) tile skeleton shared by the f32 matmul, the f16
-// matmul_acc and the (min, +) kernels for Hopper (sm_90a).  f16 matmul runs
-// on the tensor cores instead (matmul.cu, hopper_tile.cuh), f32 matmul_acc
-// on the TMA-fed CUDA-core tile (ffma_tile.cuh).
+// The CUDA-core (SIMT) tile skeleton for Hopper (sm_90a), shared by the
+// (min, +) kernel (minplus.cu) and by matmul.cu's route for the views that
+// TMA cannot read (a base or a row stride off a 16-byte boundary: f16 (64 x
+// 12) blocks, an x[:, 1:] panel, f32 at 250^3 with 1000-byte rows), for
+// matmul and matmul_acc with f32 or f16 inputs and an f32 or f16 C.  The
+// views TMA reads go to the wgmma tile (f16, matmul.cu) or the FFMA tile
+// (f32, ffma_tile.cuh).
 //
 // C = A (x) B for row-major A (M, K) and B (K, N) with unit inner stride and
 // row strides lda, ldb, ldc (so a column panel of a block is read in place).
@@ -10,10 +13,14 @@
 //   kAccumulate  acc = C,    acc += a * b,          C = acc   (matmul_acc)
 //   kMinPlus     acc = +inf, acc = min(acc, a + b), C = acc   (minplus)
 // Every product and sum is IEEE f32 on the CUDA cores: no TF32, no tensor
-// cores (an f16 input of matmul_acc is widened to f32 as it is staged, and
-// products of f16 values are exact in f32).  The (min, +) semiring has no
-// tensor-core path at all, and Hopper's DPX min/add instructions cover only
-// integers.
+// cores (f16 inputs and an f16 C are widened to f32 as they are loaded, C
+// is rounded once as it is stored, and products of f16 values are exact in
+// f32).  The (min, +) semiring has no tensor-core path at all, and Hopper's
+// DPX min/add instructions cover only integers.
+//
+// Bound: 2*M*N*K operations at the CUDA cores' 67 TFLOP/s for matmul in
+// either input type (the f16 inputs lose the tensor cores here), M*N*K
+// (add, min) pairs at 33.5 T/s for minplus.
 //
 // Design (simple and right first): a 128 x 128 output tile per block of 256
 // threads, each thread owning an 8 x 8 register micro-tile (rows ty*4+i and
@@ -22,12 +29,10 @@
 // of 8: the A slice (128 x 8) is stored transposed and the B slice (8 x 128)
 // as is, in two shared-memory buffers; the next slice is loaded from device
 // memory into registers while the current one is multiplied, then stored to
-// the other buffer, with one barrier per slice.  Every load is bounds-checked
-// and pads with the epilogue's identity (0, or +inf for min-plus), so
-// partial tiles are right.  It stays on the CUDA cores because f32 has to
-// stay IEEE f32 (the reference's 1e-4 bound rules out TF32) and (min, +)
-// has no tensor-core form; matmul_acc's f16 inputs are queued for the
-// tensor-core tile.
+// the other buffer, with one barrier per slice.  Every load is element by
+// element and bounds-checked, so any base and row stride is read, and pads
+// with the epilogue's identity (0, or +inf for min-plus), so partial tiles
+// are right.
 
 #pragma once
 

@@ -8,22 +8,32 @@ the CPU they run ``matmul_ref`` / ``matmul_acc_ref``.  Nothing else selects
 the path, and no failure falls back to another kernel or to the plain
 version.
 
-Which kernel, by the input dtype alone (``_route``, ``_route_acc``):
-  f16 ``matmul``      -> "wgmma": the tensor-core kernel (TMA-fed wgmma
-                         tiles, f32 accumulator);
-  f32 ``matmul``      -> "simt": IEEE f32 on the CUDA cores (no TF32);
-  f32 ``matmul_acc``  -> "tma": IEEE f32 on the CUDA cores, fed by TMA
-                         (``csrc/ffma_tile.cuh``);
-  f16 ``matmul_acc``  -> "simt": the CUDA-core tile of f32 ``matmul``.
-The TMA-fed routes read A and B only where TMA can
-(``check_tma_alignment``), else the wrapper raises; no route takes another's
-inputs.  ``launches`` counts each kernel apart: "matmul" (SIMT),
-"matmul_f16_wgmma", "matmul_acc" (f32, TMA) and "matmul_acc_f16_simt".
+Which kernel (``_route``, from the inputs alone, before the launch): the op,
+the input dtype, and whether TMA can read both A and B (``tma_aligned``: a
+16-byte aligned base and a row stride of a multiple of 16 bytes).
 
-All accumulate in f32, as the Pallas kernels do with
-``preferred_element_type=f32``; products of f16 values are exact in f32.
-The plain versions rely on PyTorch's default of
-``torch.backends.cuda.matmul.allow_tf32 = False`` for tensors on the card.
+  op          inputs  TMA reads A, B  kernel (= launch counter)
+  matmul      f16     yes             "matmul_f16_wgmma"      tensor cores (wgmma)
+  matmul      f32     yes             "matmul_f32_ffma"       CUDA cores, TMA-fed
+  matmul      f16/32  no              "matmul_f16/f32_simt"   CUDA cores, element loads
+  matmul_acc  f16     yes             "matmul_acc_f16_wgmma"  tensor cores (wgmma)
+  matmul_acc  f32     yes             "matmul_acc_f32_ffma"   CUDA cores, TMA-fed
+  matmul_acc  f16/32  no              "matmul_acc_f16/f32_simt"
+
+C (``out_dtype`` of ``matmul``, ``c.dtype`` of ``matmul_acc``) is f32 or f16
+on every route and never changes it: each kernel sums in f32 and rounds once
+to C's type, as ``_matmul_kernel`` / ``_matmul_acc_kernel`` do (the latter
+seeded with ``cin.astype(f32)``).  The reference clamps its blocks to any
+shape, so every view of unit inner stride has a route; the SIMT tile takes
+what TMA cannot read.
+
+f32 stays IEEE f32 on the CUDA cores (no TF32: the reference's f32 bound of
+1e-4 needs f32 products); products of f16 values are exact in f32, and the
+tensor cores add them in f32 with truncation.  Every route is bound by its
+2*m*n*k operations (``csrc/matmul.cu``): at 989 TFLOP/s on "wgmma", at the
+CUDA cores' 67 TFLOP/s on "ffma" and "simt".  The plain versions rely on
+PyTorch's default of ``torch.backends.cuda.matmul.allow_tf32 = False`` for
+tensors on the card.
 """
 from __future__ import annotations
 
@@ -34,9 +44,14 @@ import torch
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1}
+_MODE = {"matmul": 0, "matmul_acc": 1}           # the kernels' store / accumulate mode
 
-# kernel launches by kernel; chip_smoke.py resets and reads them
-launches = {"matmul": 0, "matmul_f16_wgmma": 0, "matmul_acc": 0, "matmul_acc_f16_simt": 0}
+# kernel launches by kernel (the names ``_route`` gives); chip_smoke.py
+# resets and reads them
+launches = dict.fromkeys((
+    "matmul_f16_wgmma", "matmul_f32_ffma", "matmul_f16_simt", "matmul_f32_simt",
+    "matmul_acc_f16_wgmma", "matmul_acc_f32_ffma", "matmul_acc_f16_simt", "matmul_acc_f32_simt"),
+    0)
 # None, or a list that each tile-kernel launch (matmul, matmul_acc, minplus)
 # appends its (name, start, end) CUDA events to; chip_smoke.py sums their
 # device time over a run
@@ -50,37 +65,32 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def matmul_acc_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """C += A @ B in c's storage; returns c."""
-    return c.addmm_(a.float(), b.float())
+    """C += A @ B in c's storage, summed in f32 from c widened to f32 and
+    rounded once to c's dtype (``_matmul_acc_kernel``); returns c."""
+    if c.dtype == torch.float32:
+        return c.addmm_(a.float(), b.float())
+    return c.copy_(torch.addmm(c.float(), a.float(), b.float()))
 
 
-def _route(dtype: torch.dtype) -> str:
-    """The kernel that ``matmul`` launches for inputs of ``dtype``: "wgmma"
-    (tensor cores) for f16, "simt" (CUDA cores, IEEE f32) for f32."""
-    return "wgmma" if dtype == torch.float16 else "simt"
-
-
-def _route_acc(dtype: torch.dtype) -> str:
-    """The kernel that ``matmul_acc`` launches for inputs of ``dtype``:
-    "tma" (the TMA-fed CUDA-core tile, IEEE f32) for f32, "simt" (the
-    register-staged CUDA-core tile) for f16."""
-    return "tma" if dtype == torch.float32 else "simt"
-
-
-def check_tma_alignment(name: str, shape, strides, address: int, element_size: int) -> None:
-    """Raise unless a row-major matrix (``shape``, element ``strides``, base
-    ``address``) can be read by TMA: a 16-byte aligned base and a row stride
+def tma_aligned(shape, strides, address: int, element_size: int) -> bool:
+    """Whether TMA can read a row-major matrix (``shape``, element
+    ``strides``, base ``address``): a 16-byte aligned base and a row stride
     of a multiple of 16 bytes (a matrix of one row has no row stride to
     speak of)."""
-    rows = shape[0]
-    row_bytes = strides[0] * element_size
-    if address % 16 or (rows > 1 and row_bytes % 16):
-        raise ValueError(
-            f"the {name} kernel reads its inputs with TMA, which needs a "
-            f"16-byte aligned base and a row stride of a multiple of 16 bytes; got a "
-            f"{tuple(shape)} view at address {address:#x} with row stride {row_bytes} B "
-            f"(a copy with .contiguous() on a width of a multiple of {16 // element_size} "
-            f"elements meets it)")
+    return address % 16 == 0 and (shape[0] <= 1 or strides[0] * element_size % 16 == 0)
+
+
+def _route(op: str, in_dtype: torch.dtype, out_dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel that ``op`` ("matmul" or "matmul_acc") launches for A and B
+    of ``in_dtype`` and C of ``out_dtype``, ``aligned`` when TMA reads both
+    A and B: the tensor-core tile (f16) or the TMA-fed FFMA tile (f32) for
+    aligned views, the SIMT tile for the rest.  The name is also the
+    launch counter's key.  Raises for what no kernel takes."""
+    if op not in _MODE or in_dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"no kernel for {op} with {in_dtype} inputs and a {out_dtype} C; "
+                        f"the ops are matmul and matmul_acc, the dtypes f32 and f16")
+    tile = ("wgmma" if in_dtype == torch.float16 else "ffma") if aligned else "simt"
+    return f"{op}_{'f16' if in_dtype == torch.float16 else 'f32'}_{tile}"
 
 
 def _check(a, b, c=None) -> None:
@@ -136,6 +146,16 @@ def launch_tile(lib_name: str, symbol: str, name: str, codes, a, b, c) -> None:
         events.append((name, start, end))
 
 
+def _launch(op: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> None:
+    aligned = all(tma_aligned(t.shape, t.stride(), t.data_ptr(), t.element_size())
+                  for t in (a, b))
+    name = _route(op, a.dtype, c.dtype, aligned)
+    # the tile's C entry in csrc/matmul.cu: repro_tile_wgmma, _ffma or _simt
+    launch_tile("matmul", "repro_tile_" + name.rsplit("_", 1)[1], name,
+                (_MODE[op], _DTYPE_CODE[a.dtype], _DTYPE_CODE[c.dtype]), a, b, c)
+    launches[name] += 1
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """C = A @ B, f32 accumulation, cast to ``out_dtype`` (f32 or f16): the
@@ -148,35 +168,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     if not _on_card("matmul", a, b):
         return matmul_ref(a, b, out_dtype=out_dtype)
     c = torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype, device=a.device)
-    if _route(a.dtype) == "wgmma":
-        for t in (a, b):
-            check_tma_alignment("matmul", t.shape, t.stride(), t.data_ptr(), t.element_size())
-        launch_tile("matmul", "repro_matmul_f16", "matmul_f16_wgmma",
-                    (_DTYPE_CODE[out_dtype],), a, b, c)
-        launches["matmul_f16_wgmma"] += 1
-    else:
-        launch_tile("matmul", "repro_matmul", "matmul",
-                    (_DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype]), a, b, c)
-        launches["matmul"] += 1
+    _launch("matmul", a, b, c)
     return c
 
 
 def matmul_acc(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """C += A @ B written into c's storage (no (m, n) temporary); returns c.
-    The counterpart of ``matmul_acc_pallas``'s ``input_output_aliases``."""
+    """C += A @ B written into c's storage (no (m, n) temporary), c f32 or
+    f16; returns c.  The counterpart of ``matmul_acc_pallas``'s
+    ``input_output_aliases``."""
     _check(a, b, c)
-    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype or c.dtype != torch.float32:
-        raise TypeError(f"matmul_acc takes f32 or f16 A and B alike and an f32 C; got "
-                        f"{a.dtype}, {b.dtype}, {c.dtype}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype or c.dtype not in _DTYPE_CODE:
+        raise TypeError(f"matmul_acc takes f32 or f16 A and B alike and an f32 or f16 C; "
+                        f"got {a.dtype}, {b.dtype}, {c.dtype}")
     if not _on_card("matmul_acc", a, b, c):
         return matmul_acc_ref(a, b, c)
-    if _route_acc(a.dtype) == "tma":
-        for t in (a, b):
-            check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(),
-                                t.element_size())
-        name = "matmul_acc"
-    else:
-        name = "matmul_acc_f16_simt"
-    launch_tile("matmul", "repro_matmul_acc", name, (_DTYPE_CODE[a.dtype],), a, b, c)
-    launches[name] += 1
+    _launch("matmul_acc", a, b, c)
     return c

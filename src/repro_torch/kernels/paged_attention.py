@@ -79,12 +79,14 @@ def _sm_count(index: int) -> int:
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
+                        lengths: torch.Tensor, *, scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch paged decode attention.
 
     Follows the JAX reference (``kernels/ref.py::paged_attention``): gather
     the pages through the clamped table, f32 scores of ``q * scale`` (scaled
-    in q's dtype), f32 softmax, probabilities cast to q's dtype for P.V.
+    in q's dtype; ``scale`` defaults to 1/sqrt(hd), as
+    ``paged_attention_pallas``'s), f32 softmax, probabilities cast to q's
+    dtype for P.V.
     Key positions at or past the length are masked; so are positions on a
     dead (-1) table entry, and a row with no live key returns 0 -- the TPU
     kernel's semantics, which the reference leaves to the kernel.  Wherever
@@ -96,7 +98,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     idx = block_tables.long().clamp(min=0)
     k = k_pages[idx].reshape(b, p * blk, hkv, hd)
     v = v_pages[idx].reshape(b, p * blk, hkv, hd)
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bgrd,bkgd->bgrk", (q * scale).float(), k.float())
     kpos = torch.arange(p * blk, device=q.device)
     live = (block_tables >= 0).repeat_interleave(blk, dim=1)      # (B, K)
@@ -131,14 +134,16 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                    block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Paged decode attention: the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
+                    block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """Paged decode attention, scores scaled by ``scale`` (default
+    1/sqrt(hd)): the CUDA kernel for tensors on the card, the plain version
+    for tensors on the CPU."""
     global launches
     _check(q, k_pages, v_pages, block_tables, lengths)
     tensors = (q, k_pages, v_pages, block_tables, lengths)
     if all(t.device.type == "cpu" for t in tensors):
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, scale=scale)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"paged_attention takes tensors all on the CPU or all on one "
                          f"CUDA device; got {[str(t.device) for t in tensors]}")
@@ -173,7 +178,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     err = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], q.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-             b, hkv, rep, hd, n_blocks, blk, pages, pps, 1.0 / math.sqrt(hd),
+             b, hkv, rep, hd, n_blocks, blk, pages, pps,
+             1.0 / math.sqrt(hd) if scale is None else scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

@@ -128,15 +128,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     ops.matmul(x, x)
     ops.matmul_acc(x.half(), x.half(), x.clone())
     ops.matmul_acc(x, x, x.clone())
+    c16 = x.half()
+    assert ops.matmul_acc(x, x, c16) is c16            # an f16 C, as the reference takes
+    np.testing.assert_array_equal(c16.float().numpy(), np.full((4, 4), 5.0))
     assert km.launches == before                       # the CPU runs the plain versions
-    assert set(km.launches) == {"matmul", "matmul_f16_wgmma", "matmul_acc",
-                                "matmul_acc_f16_simt"}
+    assert set(km.launches) == {f"{op}_{dt}_{tile}" for op in ("matmul", "matmul_acc")
+                                for dt, tile in (("f16", "wgmma"), ("f32", "ffma"),
+                                                 ("f16", "simt"), ("f32", "simt"))}
     with pytest.raises(ValueError):
         ops.matmul(x, torch.ones((5, 4)))
     with pytest.raises(TypeError):
         ops.matmul(x.double(), x.double())
     with pytest.raises(TypeError):
-        ops.matmul_acc(x, x, x.half())
+        ops.matmul_acc(x, x, x.double())
     with pytest.raises(TypeError):
         ops.minplus(x.half(), x.half())
     with pytest.raises(ValueError):          # neither all on the CPU nor on one card
@@ -145,11 +149,38 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         km.matmul(x.half().to("meta"), x.half().to("meta"))
 
 
-@pytest.mark.parametrize("dtype,want", [(torch.float16, "wgmma"), (torch.float32, "simt")])
+@pytest.mark.parametrize("dtype,want", [(torch.float16, "wgmma"), (torch.float32, "ffma")])
 def test_route_by_dtype(dtype, want):
-    """f16 matmul goes to the tensor-core kernel, f32 stays on the CUDA cores
-    (IEEE f32, no TF32)."""
-    assert km._route(dtype) == want
+    """A view TMA reads goes by its dtype: f16 to the tensor-core kernel, f32
+    to the TMA-fed CUDA-core tile (IEEE f32, no TF32); C's dtype never
+    changes the route."""
+    name = {torch.float16: "f16", torch.float32: "f32"}[dtype]
+    for op in ("matmul", "matmul_acc"):
+        for out in (torch.float32, torch.float16):
+            assert km._route(op, dtype, out, True) == f"{op}_{name}_{want}"
+            assert km._route(op, dtype, out, False) == f"{op}_{name}_simt"
+
+
+@pytest.mark.parametrize("op", ["matmul", "matmul_acc"])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float16, torch.float32), (torch.float16, torch.float16),
+    (torch.float32, torch.float32), (torch.float32, torch.float16)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_route_table(op, in_dtype, out_dtype, aligned):
+    """The route of every (op, input dtype, C dtype, alignment): one kernel,
+    one launch counter, decided from these four alone."""
+    tile = ("wgmma" if in_dtype == torch.float16 else "ffma") if aligned else "simt"
+    want = f"{op}_{'f16' if in_dtype == torch.float16 else 'f32'}_{tile}"
+    assert km._route(op, in_dtype, out_dtype, aligned) == want
+    assert want in km.launches
+
+
+def test_route_rejects_what_no_kernel_takes():
+    for args in (("minplus", torch.float32, torch.float32, True),
+                 ("matmul", torch.bfloat16, torch.float32, True),
+                 ("matmul_acc", torch.float32, torch.float64, False)):
+        with pytest.raises(TypeError):
+            km._route(*args)
 
 
 @pytest.mark.parametrize("shape,strides,address,ok", [
@@ -163,49 +194,48 @@ def test_route_by_dtype(dtype, want):
 ])
 def test_tma_alignment_check(shape, strides, address, ok):
     """TMA reads a matrix whose base is 16-byte aligned and whose row stride
-    is a multiple of 16 bytes; the f16 route raises on anything else."""
-    if ok:
-        km.check_tma_alignment("matmul", shape, strides, address, 2)
-    else:
-        with pytest.raises(ValueError, match="TMA"):
-            km.check_tma_alignment("matmul", shape, strides, address, 2)
+    is a multiple of 16 bytes; anything else goes to the SIMT tile."""
+    assert km.tma_aligned(shape, strides, address, 2) is ok
+    assert km._route("matmul", torch.float16, torch.float32, ok) == \
+        ("matmul_f16_wgmma" if ok else "matmul_f16_simt")
 
 
 def test_tma_alignment_of_views():
-    """The same check on real f16 views: a slice one column in is
+    """The same predicate on real f16 views: a slice one column in is
     misaligned, a column panel at a multiple of 8 columns is not."""
     blk = torch.zeros((16, 64), dtype=torch.float16)
 
-    def check(t):
-        km.check_tma_alignment("matmul", t.shape, t.stride(), t.data_ptr(), t.element_size())
+    def aligned(t):
+        return km.tma_aligned(t.shape, t.stride(), t.data_ptr(), t.element_size())
 
-    check(blk[:, 8:40])
-    with pytest.raises(ValueError, match="16-byte aligned base"):
-        check(blk[:, 1:])
+    assert aligned(blk[:, 8:40])
+    assert not aligned(blk[:, 1:])
 
 
 @pytest.mark.parametrize("dtype,route,counter", [
-    (torch.float32, "tma", "matmul_acc"),
-    (torch.float16, "simt", "matmul_acc_f16_simt"),
+    (torch.float32, "ffma", "matmul_acc_f32_ffma"),
+    (torch.float16, "wgmma", "matmul_acc_f16_wgmma"),
 ])
 def test_matmul_acc_route_and_counter(dtype, route, counter):
-    """f32 matmul_acc goes to the TMA-fed CUDA-core tile (IEEE f32, counted
-    as "matmul_acc", the distributed path's count), f16 to the register-
-    staged CUDA-core tile, counted apart."""
-    assert km._route_acc(dtype) == route
-    assert counter in km.launches
-    other = {"matmul_acc", "matmul_acc_f16_simt"} - {counter}
-    assert other <= set(km.launches)
+    """matmul_acc of views TMA reads goes to the TMA-fed CUDA-core tile (f32,
+    IEEE) or the tensor-core tile (f16 inputs, f32 C: SUMMA's panel steps),
+    each counted under its own key; the misaligned views to the SIMT tile,
+    counted apart."""
+    assert km._route("matmul_acc", dtype, torch.float32, True) == counter
+    assert counter.endswith(route) and counter in km.launches
+    simt = counter.replace(route, "simt")
+    assert km._route("matmul_acc", dtype, torch.float32, False) == simt
+    assert simt in km.launches
 
 
-def _panel_views(n: int = 8192):
+def _panel_views(n: int = 8192, dtype=torch.float32):
     """The (A, B) operands that the bodies hand to ``mm_acc`` at size n, as
     each body slices its blocks (meta tensors: addresses from offsets, no
     storage): SUMMA and Cannon on 2x4 (panels of width n/4 of the (n/2,
     n/4) blocks), pipelined SUMMA on 1x8 (panels of width n/8), 2.5D Cannon
     on 2x2x2 (whole (n/2, n/2) blocks)."""
     def blk(r, c):
-        return torch.empty((r, c), device="meta")
+        return torch.empty((r, c), device="meta", dtype=dtype)
     views = []
     for name, (ar, ac), (br, bc), L, qx, qy in (
             ("summa/cannon 2x4", (n // 2, n // 4), (n // 2, n // 4), 4, 2, 4),
@@ -218,20 +248,83 @@ def _panel_views(n: int = 8192):
     return views
 
 
+def _aligned(t):
+    return km.tma_aligned(t.shape, t.stride(), t.data_ptr(), t.element_size())
+
+
 def test_matmul_acc_alignment_of_the_bodies_panel_views():
-    """Every f32 operand view of the distributed bodies at n = 8192 is one
-    TMA reads (16-byte aligned base and row stride); a view one or two
-    columns off a 16-byte boundary raises, and is never sent to another
-    kernel."""
-    views = _panel_views()
-    assert len(views) == 1 + 2 + 1 + 8 + 1
-    for name, t in views:
-        km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)
-    a_blk = torch.empty((4096, 2048), device="meta")
-    for off in (1, 2):
-        t = a_blk[:, off:off + 1024]
-        with pytest.raises(ValueError, match="16-byte aligned base"):
-            km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)
-    t = torch.empty((64, 1030), device="meta")[:, :1024]          # 4120-byte rows
-    with pytest.raises(ValueError, match="row stride"):
-        km.check_tma_alignment("matmul_acc", t.shape, t.stride(), t.data_ptr(), 4)
+    """Every operand view of the distributed bodies at n = 8192, in f32 and
+    in f16 (the f16 SUMMA run), is one TMA reads, so each panel step goes to
+    the TMA-fed tile; a view one or two columns off a 16-byte boundary, or
+    with a row stride off one, goes to the SIMT tile, decided before any
+    launch."""
+    for dtype, name, tile in ((torch.float32, "f32", "ffma"), (torch.float16, "f16", "wgmma")):
+        views = _panel_views(dtype=dtype)
+        assert len(views) == 1 + 2 + 1 + 8 + 1
+        for _, t in views:
+            assert _aligned(t)
+        assert km._route("matmul_acc", dtype, torch.float32, True) == \
+            f"matmul_acc_{name}_{tile}"
+        a_blk = torch.empty((4096, 2048), device="meta", dtype=dtype)
+        wide = torch.empty((64, 1030), device="meta", dtype=dtype)[:, :1024]  # rows off 16 B
+        for t in (a_blk[:, 1:1025], a_blk[:, 2:1026], wide):
+            assert not _aligned(t)
+            assert km._route("matmul_acc", dtype, torch.float32, _aligned(t)) == \
+                f"matmul_acc_{name}_simt"
+
+
+# the reference's shapes that TMA cannot read, through the plain versions
+# (what the SIMT route computes on the card) against the Pallas kernels in
+# interpret mode; the reference clamps its blocks to these dims
+
+def test_matmul_f16_on_24_byte_rows_matches_pallas():
+    rng = np.random.RandomState(11)
+    a, b = rng.randn(64, 12).astype(np.float16), rng.randn(12, 64).astype(np.float16)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert not _aligned(at)
+    got = ops.matmul(at, bt)
+    for want in (jops.matmul(jnp.asarray(a), jnp.asarray(b), interpret=True),
+                 ref.matmul(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-1)
+
+
+def test_matmul_acc_f32_at_250_cubed_matches_pallas():
+    rng = np.random.RandomState(12)
+    a, b, c = (rng.randn(250, 250).astype(np.float32) for _ in range(3))
+    at = torch.from_numpy(a)
+    assert not _aligned(at)                   # 1000-byte rows
+    want = jops.matmul_acc(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), interpret=True)
+    ct = torch.from_numpy(c.copy())
+    got = ops.matmul_acc(at, torch.from_numpy(b), ct)
+    assert got.data_ptr() == ct.data_ptr()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("in_dtype", [np.float16, np.float32])
+def test_matmul_acc_f16_c_matches_pallas(in_dtype):
+    """An f16 C: seeded as f32, summed in f32, rounded once to f16, in C's
+    storage, as ``_matmul_acc_kernel`` does with ``out_dtype=c.dtype``."""
+    rng = np.random.RandomState(13)
+    a, b = rng.randn(128, 96).astype(in_dtype), rng.randn(96, 64).astype(in_dtype)
+    c = rng.randn(128, 64).astype(np.float16)
+    want = jops.matmul_acc(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), bm=64, bn=64,
+                           bk=32, interpret=True)
+    assert want.dtype == jnp.float16
+    ct = torch.from_numpy(c.copy())
+    got = ops.matmul_acc(torch.from_numpy(a), torch.from_numpy(b), ct)
+    assert got is ct and got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=2e-2,
+                               atol=2e-1)
+
+
+def test_matmul_acc_f16_inputs_f32_c_matches_pallas():
+    """SUMMA's panel step with f16 blocks: f16 A and B into an f32 C."""
+    rng = np.random.RandomState(14)
+    a, b = rng.randn(128, 64).astype(np.float16), rng.randn(64, 96).astype(np.float16)
+    c = rng.randn(128, 96).astype(np.float32)
+    want = jops.matmul_acc(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), bm=64, bn=32,
+                           bk=32, interpret=True)
+    ct = torch.from_numpy(c.copy())
+    got = ops.matmul_acc(torch.from_numpy(a), torch.from_numpy(b), ct)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-1)

@@ -89,6 +89,26 @@ def test_plain_matches_pallas_interpret(rep):
     assert torch.count_nonzero(got[1]) == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scale_matches_pallas_interpret(dtype):
+    """A non-default ``scale`` (0.05, not 1/sqrt(16) = 0.25) through the
+    wrapper on the CPU, against the TPU kernel in interpret mode with the
+    same scale, with a dead row and a dead entry; the default stays
+    1/sqrt(hd)."""
+    case = _case(8, b=3, hkv=2, rep=3, hd=16, n_blocks=14, blk=4, pages=4,
+                 dead_row=1, hole=(2, 0))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    got = pa.paged_attention(*_torch(case, dtype), scale=0.05)
+    want = paged_attention_pallas(*_jax(case, jdt), scale=0.05, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    default = pa.paged_attention(*_torch(case, dtype))
+    assert not torch.allclose(got.float(), default.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(default, pa.paged_attention(*_torch(case, dtype), scale=0.25),
+                               atol=0, rtol=0)
+
+
 def test_plain_matches_jax_ref_bf16():
     """bf16: both round q * scale and the probabilities to bf16 the same
     way; they may differ by a flipped rounding of one probability and by
