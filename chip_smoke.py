@@ -83,17 +83,48 @@ Between 6 and 7, on the same model and request mix as 4:
   oracle aligned -- one served request re-run teacher-forced through a fused
                  prefill and end-aligned decode steps, against ``forward``.
 
+After those and before 7, on the same model (trained, not served):
+
+  train      -- 8 steps of ``make_train_step`` on full-width, full-depth
+                 Llama-3.2-3B (batch 8 x seq 256, f32 master parameters,
+                 bf16 compute and grads, f32 AdamW moments, full remat),
+                 each loss finite; the step time (the walls of steps 2-8
+                 summed over 7; their median beside it) and the peak memory
+                 beside the cost model's predictions on H100 constants
+                 (``train_step_cost``, ``train_memory_bytes +
+                 train_activation_bytes``); the forward/backward and the
+                 AdamW update timed alone; one step under the profiler
+                 (device busy against wall);
+  train reduced -- the reduced config's loss and grads on the card against
+                 the CPU from the same state, every remat mode, f32 and
+                 bf16 compute, and one train step's parameters;
+  train launcher -- ``launch/train.py``'s main path at reduced width with an
+                 injected fault, in a fresh process under
+                 ``torch.use_deterministic_algorithms(True)`` (with
+                 ``CUBLAS_WORKSPACE_CONFIG``, which must be set before cuBLAS
+                 first initialises -- hence the process); both runs print
+                 OK and the recovered final state equals the uninterrupted
+                 run's, bit for bit.
+
+Phase 7 also fits a host-staging ``LinkClass`` (t_s, t_w) by least squares
+to the f32 bodies' walls and prints every ``*_cost`` prediction with it
+beside the body wall it measured.
+
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -703,6 +734,285 @@ def phase_oracle_aligned(cfg, params, comp) -> None:
 
 
 # ---------------------------------------------------------------------------
+# training: full-width steps, the reduced step against the CPU, the launcher
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8     # the launcher's batch and sequence
+# the reduced step, card against CPU: f32 (loss relative, grads normwise a
+# leaf; the two differ in summation order only), bf16 compute (one bf16
+# rounding, 2**-8, at different places in a few ops)
+TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+LAUNCH_ARGS = ["--steps", "8", "--ckpt-every", "3"]
+# runs the launcher twice, with an injected fault and without, in one fresh
+# process: deterministic algorithms need CUBLAS_WORKSPACE_CONFIG before cuBLAS
+# first initialises, which this process did long ago
+LAUNCH_CHILD = r"""
+import json, sys, torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.launch import train
+from repro_torch.tree import leaves
+args, d_fault, d_clean = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+s1, h1 = train.main(args + ["--ckpt-dir", d_fault, "--inject-fault-at", "5"])
+s2, h2 = train.main(args + ["--ckpt-dir", d_clean])
+print(json.dumps({"equal": all(torch.equal(a, b) for a, b in zip(leaves(s1), leaves(s2))),
+                  "steps": [h["step"] for h in h1]}))
+"""
+
+
+def _train_setup(cfg):
+    from repro_torch.config import ParallelConfig, ShapeConfig, TrainConfig
+    # the launcher's settings at its batch and sequence, with JAX's default
+    # layout: f32 master parameters, bf16 compute and grads, f32 moments,
+    # full remat
+    pcfg = ParallelConfig(remat="full", fsdp_params=False)
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS, z_loss=0.0)
+    return pcfg, tcfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+
+
+def phase_train(cfg) -> None:
+    """Full-width, full-depth steps of ``make_train_step`` on the card, each
+    loss finite; step time and peak memory beside the cost model's
+    predictions on H100 constants; then the forward/backward and the
+    optimizer alone, and one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.core import costmodel as cm
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, tree_map, tree_unflatten
+    pcfg, tcfg, shape = _train_setup(cfg)
+    counts = cfg.param_counts()
+    print(f"[train] {cfg.name}: {counts['total'] / 1e9:.3f} B parameters, {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, vocab {cfg.vocab}; batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}; f32 master parameters, bf16 compute, {pcfg.grad_dtype} grads, "
+          f"{pcfg.opt_state_dtype} AdamW moments, remat={pcfg.remat}; allocated before "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = S.init_train_state(torch.Generator(device="cuda").manual_seed(0), cfg, pcfg)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    print(f"[train] init {time.perf_counter() - t0:.1f} s; state {state_bytes / 1e9:.2f} GB "
+          f"(parameters and both moments)", flush=True)
+    step = S.make_train_step(cfg, pcfg, tcfg)
+    batches = make_batch_iterator(cfg, shape, seed=tcfg.seed, device="cuda")
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"[train] step {i}: loss {losses[-1]:.4f}, grad norm {float(m['grad_norm']):.3f}, "
+              f"lr {float(m['lr']):.2e}, {times[-1] * 1e3:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"train: a non-finite loss in {losses}")
+    # the window's rate: every wall of steps 2..N summed, so a stalled step
+    # counts; the median beside it is a per-step statistic
+    window = times[1:]
+    mean = float(np.sum(window)) / len(window)
+    med = float(np.median(window))
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    act = cm.train_activation_bytes(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, cfg.d_ff,
+                                    cfg.n_layers, cfg.vocab, remat=pcfg.remat)
+    mem = cm.train_memory_bytes(counts["total"], param_bytes=4, grad_bytes=2,
+                                opt_state_bytes=4, activation_bytes=act)
+    pred = cm.train_step_cost(counts["active"], counts["total"], toks, chips=1,
+                              batch_local=TRAIN_BATCH, seq=TRAIN_SEQ, d_model=cfg.d_model,
+                              n_layers=cfg.n_layers, param_bytes=4, grad_bytes=2,
+                              opt_state_bytes=4, remat=pcfg.remat)
+    print(f"[train] step time over steps 2-{TRAIN_STEPS} (sum of their walls / "
+          f"{len(window)}): {mean * 1e3:.1f} ms, {toks * len(window) / float(np.sum(window)):.0f} "
+          f"tokens/s over the window (per-step median {med * 1e3:.1f} ms, min "
+          f"{min(window) * 1e3:.1f}, max {max(window) * 1e3:.1f}); cost model on H100 constants "
+          f"(spec sheet, uncalibrated): {pred['total_s'] * 1e3:.1f} ms = max(compute "
+          f"{pred['compute_s'] * 1e3:.1f}, parameter streaming {pred['memory_s'] * 1e3:.1f}) "
+          f"+ optimizer traffic {pred['update_s'] * 1e3:.1f}; measured / predicted "
+          f"{mean / pred['total_s']:.2f}; achieved {6 * counts['active'] * toks * 4 / 3 / mean / 1e12:.1f} "
+          f"TFLOP/s of model FLOPs with the recompute", flush=True)
+    print(f"[train] peak memory (max_memory_allocated, init included): {peak / 1e9:.2f} GB; "
+          f"cost model train_memory_bytes + train_activation_bytes: {mem['total'] / 1e9:.2f} GB "
+          f"(parameters {mem['params'] / 1e9:.2f} + grads {mem['grads'] / 1e9:.2f} + moments "
+          f"{mem['opt'] / 1e9:.2f} + activations {act / 1e9:.2f}); gap {(peak - mem['total']) / 1e9:.2f} "
+          f"GB (the model does not count autograd's f32 gradients, "
+          f"{4 * counts['total'] / 1e9:.2f} GB, nor the transients of the loss and the update)",
+          flush=True)
+
+    # the layers alone: forward/backward, then the optimizer
+    loss_fn = S.make_loss_fn(cfg, pcfg, tcfg)
+    batch = next(batches)
+    batches.close()
+    fb, upd = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = [p.detach().requires_grad_(True) for p in leaves(state["params"])]
+        loss, _ = loss_fn(tree_unflatten(state["params"], live), batch)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        fb.append(time.perf_counter() - t0)
+        grads = tree_unflatten(state["params"], [g.to(torch.bfloat16) for g in grads])
+        del live, loss
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optim.adamw_update(grads, state["opt"], state["params"], lr=1e-6)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t0)
+        del grads
+    print(f"[train] layers alone (median of 3): forward+backward {np.median(fb) * 1e3:.1f} ms "
+          f"(cost model compute {pred['compute_s'] * 1e3:.1f} ms); AdamW update "
+          f"{np.median(upd) * 1e3:.1f} ms (cost model optimizer traffic "
+          f"{pred['update_s'] * 1e3:.1f} ms)", flush=True)
+
+    # one profiled step: device busy against wall, by kind
+    batches = make_batch_iterator(cfg, shape, seed=tcfg.seed, start_step=TRAIN_STEPS,
+                                  device="cuda")
+    batch = next(batches)
+    batches.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"matmul": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        name = e.name.lower()
+        key = "matmul" if any(k in name for k in ("nvjet", "gemm", "xmma", "cutlass")) \
+            else "other"
+        kinds[key] += e.time_range.elapsed_us() / 1e3
+    busy = sum(kinds.values())
+    if n == 0:
+        print(f"[train] the profiler recorded no device events: device busy time not "
+              f"measured (wall {wall * 1e3:.1f} ms)", flush=True)
+    else:
+        print(f"[train] one profiled step: wall {wall * 1e3:.1f} ms, device busy "
+              f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.3f}) in {n} device events; "
+              f"matrix products {kinds['matmul']:.1f} ms, everything else "
+              f"{kinds['other']:.1f} ms (wall time is under the profiler)", flush=True)
+    del state, m, prof
+    torch.cuda.empty_cache()
+
+
+def _loss_and_grads(cfg, pcfg, tcfg, params, tokens):
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, tree_unflatten
+    live = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = S.make_loss_fn(cfg, pcfg, tcfg)(tree_unflatten(params, live), {"tokens": tokens})
+    return float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, live)]
+
+
+def _logits_cotangent_rounding(rcfg, params, tokens) -> tuple:
+    """The card's bf16 logits product (``layers._MatmulF32``) rounds its f32
+    cotangent to bf16 before both gradient products; the CPU route (and
+    JAX's transpose) keeps it f32.  Both routes on the card, on unit-normal
+    hidden states and the reduced model's embedding under the next-token
+    CE: the normwise gap of the hidden-state and embedding gradients."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import steps as S
+    b, s = tokens.shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x0 = torch.randn(b * s, rcfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    w0 = params["embed"]["embedding"].to(torch.bfloat16).t()
+    grads = []
+    for route in (L._MatmulF32.apply, lambda x, w: torch.matmul(x.float(), w.float())):
+        x, w = x0.detach().requires_grad_(True), w0.detach().requires_grad_(True)
+        logits = route(x, w).reshape(b, s, -1)
+        loss = S.cross_entropy(logits[:, :-1], tokens[:, 1:])
+        grads.append(torch.autograd.grad(loss, (x, w)))
+    (gx, gw), (fx, fw) = grads
+    return (float((gx.float() - fx.float()).norm() / fx.float().norm()),
+            float((gw.float() - fw.float()).norm() / fw.float().norm()))
+
+
+def phase_train_reduced(cfg) -> None:
+    """The reduced config on the card and on the CPU from the same state:
+    loss and grads in every remat mode and both compute dtypes, then one
+    train step and the parameters after it."""
+    from repro_torch import configs
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, tree_map
+    pcfg, tcfg, _ = _train_setup(cfg)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (TRAIN_BATCH, 64)).astype(np.int32))
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        rcfg = configs.reduced(cfg).replace(dtype=dtype)
+        cpu = S.init_train_state(torch.Generator().manual_seed(0), rcfg, pcfg)
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        loss_tol, grad_tol = TRAIN_TOL[dtype]
+        for remat in ("none", "full", "dots"):
+            p = dataclasses.replace(pcfg, remat=remat)
+            lc, gc = _loss_and_grads(rcfg, p, tcfg, cpu["params"], toks)
+            lg, gg = _loss_and_grads(rcfg, p, tcfg, gpu["params"], toks.cuda())
+            rel = abs(lg - lc) / abs(lc)
+            gerr = max(float((a - b).norm() / b.norm()) for a, b in zip(gg, gc))
+            worst[(dtype, remat)] = (rel, gerr)
+            if not (rel <= loss_tol and gerr <= grad_tol):
+                fail(f"train reduced {dtype} remat={remat}: card loss {lg} vs CPU {lc} "
+                     f"(relative {rel:.2e}, bound {loss_tol}), worst grad leaf normwise "
+                     f"{gerr:.2e} (bound {grad_tol})")
+        if dtype == "bfloat16":
+            rounding = _logits_cotangent_rounding(rcfg, gpu["params"], toks.cuda().long())
+            if not max(rounding) <= grad_tol:
+                fail(f"train reduced: the bf16 logits backward's rounded cotangent moves its "
+                     f"gradients by {rounding} normwise (bound {grad_tol})")
+        sc, mc = S.make_train_step(rcfg, pcfg, tcfg)(cpu, {"tokens": toks})
+        sg, mg = S.make_train_step(rcfg, pcfg, tcfg)(gpu, {"tokens": toks.cuda()})
+        perr = max(float((a.cpu() - b).norm() / b.norm())
+                   for a, b in zip(leaves(sg["params"]), leaves(sc["params"])))
+        rel = abs(float(mg["loss"]) - float(mc["loss"])) / float(mc["loss"])
+        worst[(dtype, "step")] = (rel, perr)
+        if not (rel <= loss_tol and perr <= grad_tol):
+            fail(f"train reduced {dtype}: one step on the card vs the CPU: loss relative "
+                 f"{rel:.2e}, parameters normwise {perr:.2e} (bounds {loss_tol}, {grad_tol})")
+    print("[train reduced] card vs CPU from the same state, reduced "
+          f"{cfg.name} at batch {TRAIN_BATCH} x 64: loss relative / worst grad leaf normwise: "
+          + "; ".join(f"{d} {r}: {a:.1e} / {b:.1e}" for (d, r), (a, b) in worst.items())
+          + f" (bounds f32 {TRAIN_TOL['float32']}, bf16 {TRAIN_TOL['bfloat16']}; 'step': "
+          "one train step, parameters after it)", flush=True)
+    print("[train reduced] bf16 logits backward on the card, cotangent rounded to bf16 "
+          "(the card's route) against kept in f32 (the CPU's and JAX's): hidden-state "
+          f"gradient {rounding[0]:.2e}, embedding gradient {rounding[1]:.2e} normwise",
+          flush=True)
+
+
+def phase_train_launcher() -> None:
+    """``launch/train.py``'s main path at reduced width on the card, with
+    an injected fault, in a fresh process under deterministic algorithms;
+    the recovered final state must equal an uninterrupted run's, bit for
+    bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", LAUNCH_CHILD, json.dumps(LAUNCH_ARGS),
+                            os.path.join(tmp, "fault"), os.path.join(tmp, "clean")],
+                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        fail(f"train launcher: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    for ln in lines[:-1]:
+        if ln.strip():
+            print(f"[train launcher] {ln}", flush=True)
+    n_ok = sum(ln.strip() == "OK" for ln in lines)
+    print(f"[train launcher] {' '.join(LAUNCH_ARGS)}, fault at step 5, deterministic "
+          f"algorithms: steps run {res['steps']}; final state bitwise equal to the "
+          f"uninterrupted run: {res['equal']}; {n_ok} x OK; {wall:.1f} s for both runs "
+          f"(process start included)", flush=True)
+    if n_ok != 2 or not res["equal"]:
+        fail("train launcher: the recovered run did not reach OK or differs from the "
+             "uninterrupted one")
+
+
+# ---------------------------------------------------------------------------
 # the tile kernels of the distributed path (matmul, matmul_acc, minplus)
 TILE_TOL = {torch.float32: (1e-4, 1e-3), torch.float16: (2e-2, 2e-1)}   # rtol, atol
 MINPLUS_OPS_S = PEAK_OPS_S[torch.float32] / 2   # an add or a min is one op, an FMA two
@@ -1019,6 +1329,72 @@ def _mm_runs(C):
     ]
 
 
+def _cost_fns(n: int) -> dict:
+    """Each rank run's ``*_cost`` as a function of (link, peak FLOP/s,
+    bytes an element), at its mesh."""
+    from repro_torch.core import costmodel as cm
+    return {
+        "dns_matmul_kernel": lambda lk, pk, b: cm.dns_matmul_cost(
+            n, 2, bytes_per_elt=b, link=lk, peak_flops=pk),
+        "summa_matmul_kernel": lambda lk, pk, b: cm.summa_matmul_cost(
+            n, 2, 4, bytes_per_elt=b, link=lk, peak_flops=pk),
+        "cannon_matmul_kernel": lambda lk, pk, b: cm.cannon_matmul_cost(
+            n, 2, 4, bytes_per_elt=b, link=lk, peak_flops=pk),
+        "summa_matmul_pipelined_kernel": lambda lk, pk, b: cm.summa_pipelined_cost(
+            n, 1, 8, bytes_per_elt=b, link=lk, peak_flops=pk),
+        "cannon_matmul_25d_kernel": lambda lk, pk, b: cm.cannon_25d_cost(
+            n, 2, 2, bytes_per_elt=b, link=lk, peak_flops=pk),
+    }
+
+
+def _staging_fit(res, runs) -> None:
+    """Fit the host staging of ``core/mesh.py`` as one ``LinkClass``: the
+    (t_s, t_w) under which the f32 runs' ``*_cost`` predictions best match
+    their body walls in least squares (``costmodel.fit_link``), each with
+    its compute term at 1/p of the card's peak (p ranks time-slice one
+    card); and, for comparison, the same walls against the bytes each rank
+    staged.  Then every run's prediction with the fitted link beside its
+    measured body wall."""
+    from repro_torch.core import costmodel as cm
+    fns = _cost_fns(N_MM)
+    rows = []
+    for name, _, shape, _, _, _, _, _, dtype in runs:
+        fn = fns[name.split()[0]]
+        bpe = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_OPS_S[dtype] / N_RANKS_MM
+        per_rank = [r[name] for r in res]
+        rows.append(dict(name=name, shape=shape, dtype=dtype,
+                         total=lambda lk, fn=fn, pk=peak, b=bpe: fn(lk, pk, b)["total_s"],
+                         comm=lambda lk, fn=fn, b=bpe: fn(lk, math.inf, b)["total_s"],
+                         wall=max(r["body_s"] for r in per_rank),
+                         staged=sum(r["staged"] for r in per_rank) / len(per_rank)))
+    f32 = [r for r in rows if r["dtype"] == torch.float32]
+    link = cm.fit_link([r["total"] for r in f32], [r["comm"] for r in f32],
+                       [r["wall"] for r in f32])
+    print(f"[fit] host staging fitted to the {len(f32)} f32 bodies: t_s = {link.t_s * 1e6:.1f} "
+          f"us, t_w = {link.t_w * 1e9:.4f} ns/B ({1 / link.t_w / 1e9:.2f} GB/s) (the H100 "
+          f"constants' NVLink: {cm.NVLINK.t_s * 1e6:.1f} us, {1 / cm.NVLINK.t_w / 1e9:.0f} GB/s)",
+          flush=True)
+    # the transport alone: each body's wall against the bytes it staged a
+    # rank (as measured, not as the model counts them), one intercept a body
+    free = cm.LinkClass(0.0, 0.0)
+    direct = cm.LinkClass.fit([(1.0, r["staged"]) for r in f32],
+                              [r["wall"] - r["total"](free) for r in f32])
+    resid = [direct.t_s + direct.t_w * r["staged"] + r["total"](free) - r["wall"] for r in f32]
+    print(f"[fit] the f32 bodies' walls less compute against the bytes each rank staged: "
+          f"{direct.t_s * 1e3:.1f} ms a body + {1 / direct.t_w / 1e9:.2f} GB/s; residuals "
+          + ", ".join(f"{r['name'].split()[0]} {e:+.3f} s" for r, e in zip(f32, resid)),
+          flush=True)
+    for r in rows:
+        starts, nbytes = cm.link_terms(r["comm"])
+        pred = r["total"](link)
+        print(f"[fit] {r['name']} {'x'.join(map(str, r['shape']))}: predicted {pred:.3f} s "
+              f"(compute {r['total'](cm.LinkClass(0.0, 0.0)) * 1e3:.1f} ms at 1/{N_RANKS_MM} "
+              f"of the card's peak; {starts:.0f} start-ups and {nbytes / 2**20:.0f} MiB on "
+              f"the critical path) vs body wall {r['wall']:.3f} s ({pred / r['wall']:.2f}x); "
+              f"staged {r['staged'] / 2**20:.0f} MiB a rank", flush=True)
+
+
 def _kernel_ms(km) -> float:
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for _, s, e in km.events)
@@ -1197,6 +1573,7 @@ def phase_distributed() -> dict:
             counts[kernel] += got[kernel]
     print(f"[ranks] matmul phase: {N_RANKS_MM} ranks, n = {N_MM}: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _staging_fit(res, _mm_runs(C))
 
     t0 = time.perf_counter()
     res = launch(4, rank_fw, N_FW, N_FW_FAITHFUL, 5, device="cuda", timeout=900)
@@ -1249,7 +1626,10 @@ def main() -> None:
     tile = _timed("kernels: matmul, matmul_acc, minplus", phase_tile_kernels)
     cfg = configs.get(ARCH)
     t0 = time.perf_counter()
-    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    # bf16 matrices, as the serve CLI asks: ``dense`` casts every matrix to
+    # cfg.dtype (bf16) before its product, and a bf16 init rounds the same
+    # f32 draws once, so the numbers equal those of the f32 master init
+    params = T.init(cfg, torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in [params["embed"]["embedding"]] +
                    [w for lp in params["layers"] for d in lp.values() for w in d.values()])
@@ -1262,6 +1642,9 @@ def main() -> None:
     _timed("oracle aligned", phase_oracle_aligned, cfg, params, comp)
     del params
     torch.cuda.empty_cache()
+    _timed("train", phase_train, cfg)
+    _timed("train reduced", phase_train_reduced, cfg)
+    _timed("train launcher", phase_train_launcher)
     counts = _timed("ranks", phase_distributed)
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     kernels = [

@@ -3,7 +3,10 @@
 The port's copy of ``ModelConfig`` and the family configs it names. The
 fields, defaults and derived properties are those of the JAX package's
 config, so one arch reads the same in both; dtype names stay strings and
-``torch_dtype`` maps them to torch dtypes.
+``torch_dtype`` maps them to torch dtypes.  ``ShapeConfig`` / ``SHAPES``
+(input shapes), ``ParallelConfig`` (layout and numerics of a train step) and
+``TrainConfig`` (optimizer, schedule, checkpoints) are the reference's, field
+for field and default for default.
 """
 from __future__ import annotations
 
@@ -86,7 +89,7 @@ class ModelConfig:
     logit_softcap: Optional[float] = None
     # numerics
     dtype: str = "bfloat16"                  # activation/compute dtype
-    param_dtype: str = "float32"             # master params (JAX side)
+    param_dtype: str = "float32"             # master params
     sub_quadratic: bool = False
     notes: str = ""
 
@@ -107,3 +110,107 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- parameter counting (drives MODEL_FLOPS and memory estimates) ----
+    def param_counts(self) -> dict:
+        d, hd = self.d_model, self.hd
+        counts: dict = {}
+        counts["embed"] = self.vocab * d
+        counts["unembed"] = 0 if self.tie_embeddings else self.vocab * d
+        per_kind = {}
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        mlp_mult = 3 if self.act == "swiglu" else 2
+        per_kind["attn"] = attn + mlp_mult * d * self.d_ff + 2 * d
+        if self.moe:
+            e = self.moe
+            experts = e.n_experts * mlp_mult * d * e.d_ff_expert
+            shared = e.n_shared_experts * mlp_mult * d * e.d_ff_expert
+            router = d * e.n_experts
+            per_kind["attn_moe"] = attn + experts + shared + router + 2 * d
+        if self.ssm:
+            s = self.ssm
+            d_in = s.expand * d
+            nh = d_in // s.head_dim
+            per_kind["mamba2"] = (d * (2 * d_in + 2 * s.d_state + nh)
+                                  + s.conv_width * (d_in + 2 * s.d_state)
+                                  + 2 * nh + d_in * d + 2 * d)
+            per_kind["mamba2_attn"] = per_kind["mamba2"]  # shared attn counted once below
+        if self.xlstm:
+            f = self.xlstm
+            d_in = int(f.proj_factor * d)
+            per_kind["mlstm"] = d * 2 * d_in + 3 * d_in * d_in // 1 + d_in * d + 2 * d
+            per_kind["slstm"] = 4 * 2 * d * d + d * d + 2 * d
+        total = counts["embed"] + counts["unembed"]
+        for kind in self.block_pattern:
+            base = kind if kind in per_kind else "attn"
+            total += per_kind[base] * self.n_periods
+        if "mamba2_attn" in self.block_pattern:
+            total += attn + mlp_mult * d * self.d_ff  # one shared block
+        counts["total"] = total
+        # active (MoE: only top_k + shared experts per token)
+        active = total
+        if self.moe:
+            e = self.moe
+            dead = (e.n_experts - e.top_k) * mlp_mult * d * e.d_ff_expert
+            active = total - dead * self.block_pattern.count("attn_moe") * self.n_periods
+        counts["active"] = active
+        return counts
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How the model is laid out on the mesh."""
+    fsdp_params: bool = True        # shard params over 'data' (ZeRO-3 style)
+    fsdp_pod: bool = False          # extend param/opt sharding over 'pod'
+    grad_reduce: Literal["all_reduce", "reduce_scatter_zero"] = "all_reduce"
+    # ^ reduce_scatter_zero: grads reduce-scattered over the fsdp/data axes,
+    #   AdamW updates only the local shard, params all-gathered (ZeRO)
+    opt_state_dtype: str = "float32"   # float32|bfloat16 (compression)
+    grad_dtype: str = "bfloat16"       # gradient all-reduce compression
+    remat: Literal["none", "dots", "full"] = "full"
+    sequence_parallel: bool = False
+    use_flash_kernel: bool = False  # Pallas attention inside shard_map
+    use_foopar_tp: bool = False     # algebra-based TP matmuls (paper-faithful)
+    logit_chunk: Optional[int] = None  # chunked CE loss over sequence
+    scan_unroll: int = 1            # layer-scan unroll (dry-run flop probing)
+    moe_a2a_ep: bool = False        # token-routing EP (tokens move, not weights)
+    engine_replicate: bool = False  # SSM/mLSTM engine: batch-shard only (§Perf)
+    master_weights: bool = False    # bf16 params + f32 master in opt (§Perf)
+    grad_barrier: bool = False      # optimization_barrier on grads (§Perf)
+    manual_attention: bool = False  # manual shard_map SDPA region (§Perf)
+    dp_over_model: bool = False     # pure DP: batch over BOTH axes (§Perf C7)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"

@@ -85,7 +85,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          f"{cfg.name} has pattern {cfg.block_pattern} "
                          f"(window={cfg.window})")
     device = torch.device(args.device)
-    params = T.init(cfg, torch.Generator(device=device).manual_seed(args.seed))
+    # serving keeps bf16 matrices: ``dense`` casts every matrix to
+    # cfg.dtype (bf16) before its product, and a bf16 init rounds the same
+    # f32 draws once, so the logits equal those of the f32 master init
+    params = T.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                    dtype=torch.bfloat16)
 
     slots = 1 if args.naive else args.slots
     max_len = args.prompt_len + args.gen

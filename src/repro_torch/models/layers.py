@@ -4,11 +4,12 @@ Pure functions over dict params, mirroring the JAX package's
 ``models/layers.py`` function by function:
 
   * weight matrices keep the JAX layout ``(d_in, d_out)`` (``x @ w``);
-  * activations run in ``cfg.dtype``; norm statistics, softmax and logits in
-    f32.  The JAX model keeps f32 master weights and casts them to
-    ``cfg.dtype`` inside every ``dense``; the port stores matrices in
-    ``cfg.dtype`` to begin with, which gives the same numbers without the
-    per-call cast.  Norm scales stay f32, as the JAX model reads them.
+  * parameters are stored in ``cfg.param_dtype`` (f32 master weights, as in
+    JAX) and cast to ``cfg.dtype`` inside every ``dense``; activations run
+    in ``cfg.dtype``, norm statistics, softmax and logits in f32.  An init
+    may ask for its matrices in another dtype (the serving entry points ask
+    for bf16): matrices are drawn in f32 and rounded once, so a bf16 matrix
+    holds exactly what ``dense`` would cast the f32 one to.
   * caches are written in place, where JAX donates and rewrites them: the
     paged cache is a (K, V) pair of page arenas ``(n_blocks, block, Hkv,
     hd)``; the end-aligned cache a (K, V) pair of per-slot rows ``(B, L, Hkv,
@@ -17,7 +18,9 @@ Pure functions over dict params, mirroring the JAX package's
     ``forward``, a fused prefill from position 0, an SWA prefill longer than
     the ring -- runs through the flash-attention kernel
     (``kernels/flash_attention.py``); decode, per-row offsets and the paged
-    chunked prefill stay on ``_sdpa``, as in JAX.
+    chunked prefill stay on ``_sdpa``, as in JAX.  The kernel has no
+    backward pass, so attention that autograd records (a train step) runs
+    ``_sdpa``, as JAX's train step does.
 
 Sharding constraints, the manual sequence-sharded attention and the FooPar
 tensor-parallel MLP are not ported yet (ROADMAP, port queue).
@@ -42,20 +45,53 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+def _pdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+def _device(gen: Optional[torch.Generator]) -> torch.device:
+    """The generator's device; no generator is a shape-only (``meta``) init."""
+    return gen.device if gen is not None else torch.device("meta")
+
+
+def _normal(gen: Optional[torch.Generator], shape, std: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
             * std).to(dtype)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, cfg: ModelConfig,
-               scale: float | None = None) -> torch.Tensor:
+def dense_init(gen: Optional[torch.Generator], d_in: int, d_out: int, cfg: ModelConfig,
+               scale: float | None = None, dtype: Optional[torch.dtype] = None
+               ) -> torch.Tensor:
+    """A ``(d_in, d_out)`` matrix, normal with std ``scale`` (1/sqrt(d_in)),
+    in ``dtype`` (default ``cfg.param_dtype``, as in JAX)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return _normal(gen, (d_in, d_out), scale, _dtype(cfg))
+    return _normal(gen, (d_in, d_out), scale, dtype or _pdtype(cfg))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = _dtype(cfg)
     return torch.matmul(x.to(dt), w.to(dt))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 x bf16 -> f32 on the card (``torch.mm(out_dtype=)``), with a
+    backward in the same form: the f32 cotangent is rounded to the
+    operands' dtype and each gradient accumulates in f32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype),
+                torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype))
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,8 +102,8 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.device.type == "cuda":
-        return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                        out_dtype=torch.float32).reshape(*a.shape[:-1], b.shape[-1])
+        return _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b).reshape(
+            *a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 
 
@@ -75,9 +111,9 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 def norm_init(d: int, cfg: ModelConfig, device) -> Params:
-    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((d,), dtype=_pdtype(cfg), device=device)}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+        p["bias"] = torch.zeros((d,), dtype=_pdtype(cfg), device=device)
     return p
 
 
@@ -119,17 +155,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Te
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
-def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def attention_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                   dtype: Optional[torch.dtype] = None) -> Params:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
-        "wq": dense_init(gen, d, hq * hd, cfg),
-        "wk": dense_init(gen, d, hkv * hd, cfg),
-        "wv": dense_init(gen, d, hkv * hd, cfg),
-        "wo": dense_init(gen, hq * hd, d, cfg),
+        "wq": dense_init(gen, d, hq * hd, cfg, dtype=dtype),
+        "wk": dense_init(gen, d, hkv * hd, cfg, dtype=dtype),
+        "wv": dense_init(gen, d, hkv * hd, cfg, dtype=dtype),
+        "wo": dense_init(gen, hq * hd, d, cfg, dtype=dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32, device=gen.device)}
-        p["k_norm"] = {"scale": torch.ones((hd,), dtype=torch.float32, device=gen.device)}
+        p["q_norm"] = {"scale": torch.ones((hd,), dtype=_pdtype(cfg), device=_device(gen))}
+        p["k_norm"] = {"scale": torch.ones((hd,), dtype=_pdtype(cfg), device=_device(gen))}
     return p
 
 
@@ -215,7 +252,8 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Self-attention.
 
-    No cache: full (causal) attention over x, through the flash kernel.
+    No cache: full (causal) attention over x, through the flash kernel, or
+    through ``_sdpa`` when autograd records it.
     End-aligned cache (``cache`` without ``block_tables``): per-slot rows
     ``(B, L, Hkv, hd)``.  Decode writes each row's token at its own (B,)
     ``cache_pos`` (a position past the row drops); a fused prefill writes at
@@ -322,6 +360,9 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
             out = _sdpa(q, ck[idx].reshape(b, -1, hkv, hd), cv[idx].reshape(b, -1, hkv, hd),
                         causal=True, window=None, q_offset=cache_pos)
         new_cache = (ck, cv)
+    elif q.requires_grad:
+        # a train step: the flash kernel has no backward pass
+        out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
     else:
         out = _flash(q, k, v, causal=causal, window=cfg.window)
 
@@ -332,14 +373,15 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None) -> Params:
+def mlp_init(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: Optional[int] = None,
+             dtype: Optional[torch.dtype] = None) -> Params:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act == "swiglu":
-        return {"w_gate": dense_init(gen, d, ff, cfg),
-                "w_up": dense_init(gen, d, ff, cfg),
-                "w_down": dense_init(gen, ff, d, cfg)}
-    return {"w_up": dense_init(gen, d, ff, cfg),
-            "w_down": dense_init(gen, ff, d, cfg)}
+        return {"w_gate": dense_init(gen, d, ff, cfg, dtype=dtype),
+                "w_up": dense_init(gen, d, ff, cfg, dtype=dtype),
+                "w_down": dense_init(gen, ff, d, cfg, dtype=dtype)}
+    return {"w_up": dense_init(gen, d, ff, cfg, dtype=dtype),
+            "w_down": dense_init(gen, ff, d, cfg, dtype=dtype)}
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -356,10 +398,11 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
-def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    p = {"embedding": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, _dtype(cfg))}
+def embed_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+               dtype: Optional[torch.dtype] = None) -> Params:
+    p = {"embedding": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype or _pdtype(cfg))}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg)
+        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, cfg, dtype=dtype)
     return p
 
 

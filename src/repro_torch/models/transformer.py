@@ -7,7 +7,8 @@ is a list with one (K, V) pair per layer, updated in place: per-slot rows
 ``(B, L, Hkv, hd)`` (end-aligned) or page arenas (paged).
 
   * ``forward``: full-sequence logits, no cache (the tests' and
-    ``chip_smoke.py``'s oracle for the decode paths);
+    ``chip_smoke.py``'s oracle for the decode paths, and the train step's
+    model, differentiable, with JAX's ``remat`` modes);
   * ``init_cache`` / ``prefill`` / ``decode_step``: the end-aligned serving
     engine's model calls (one fused cache-writing prefill per prompt, a
     batched decode over per-row positions);
@@ -21,9 +22,12 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
 
 Params = dict
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -47,30 +51,72 @@ def _block_apply(p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
     return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg), new_cache
 
 
-def init(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random parameters on ``generator``'s device: matrices in
-    ``cfg.dtype`` drawn as the JAX init draws them (normal, std 1/sqrt(d_in);
-    embedding std 0.02), norm scales f32 ones.  The numbers differ from the
-    JAX init's; tests carry JAX parameters over with ``convert``."""
+def init(cfg: ModelConfig, generator: Optional[torch.Generator],
+         dtype: Optional[torch.dtype] = None) -> Params:
+    """Random parameters on ``generator``'s device, drawn as the JAX init
+    draws them (normal, std 1/sqrt(d_in); embedding std 0.02; norm scales
+    ones): every leaf in ``cfg.param_dtype`` (f32 master weights), as in
+    JAX, unless ``dtype`` asks for the matrices in another dtype.  The
+    numbers differ from the JAX init's; tests carry JAX parameters over
+    with ``convert``.  ``generator=None`` builds the tree on the ``meta``
+    device (shapes and dtypes, no memory: JAX's ``eval_shape``)."""
     _check_kinds(cfg)
-    dev = generator.device
+    dev = L._device(generator)
     return {
-        "embed": L.embed_init(generator, cfg),
+        "embed": L.embed_init(generator, cfg, dtype),
         "layers": [{"ln1": L.norm_init(cfg.d_model, cfg, dev),
-                    "attn": L.attention_init(generator, cfg),
+                    "attn": L.attention_init(generator, cfg, dtype),
                     "ln2": L.norm_init(cfg.d_model, cfg, dev),
-                    "mlp": L.mlp_init(generator, cfg)}
+                    "mlp": L.mlp_init(generator, cfg, dtype=dtype)}
                    for _ in range(cfg.n_layers)],
         "final_norm": L.norm_init(cfg.d_model, cfg, dev),
     }
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) f32, causal, no cache."""
+def decay_mask(params: Params) -> dict:
+    """The leaves AdamW decays, as the JAX package's train step decays them:
+    those of more than one dimension in JAX's layout, where every per-layer
+    leaf is stacked over the periods.  So each layer's norm scales (and
+    biases) take weight decay there and here; the final norm's do not."""
+    return {k: tree_map(lambda t, stacked=(k == "layers"): stacked or t.dim() > 1, v)
+            for k, v in params.items()}
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the 2-D products (the
+    projections; JAX's ``checkpoint_dots_with_no_batch_dims``) and recompute
+    everything else, attention's batched products included."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: str = "none") -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) f32, causal, no cache.
+
+    ``remat`` says what the backward pass recomputes, as JAX's ``forward``
+    does with ``jax.checkpoint`` per layer: ``"none"`` keeps every
+    activation, ``"full"`` only each layer's input (``torch.utils.
+    checkpoint``), ``"dots"`` each layer's input and its 2-D matmul outputs
+    (selective checkpointing).  The numbers are the same in every mode."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
     h = L.embed(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def layer(h, p):
+        return _block_apply(p, h, positions, cfg, None, None, None)[0]
+
     for p in params["layers"]:
-        h, _ = _block_apply(p, h, positions, cfg, None, None, None)
+        if remat == "none":
+            h = layer(h, p)
+        elif remat == "full":
+            h = checkpoint(layer, h, p, use_reentrant=False)
+        else:
+            h = checkpoint(layer, h, p, use_reentrant=False,
+                           context_fn=lambda: create_selective_checkpoint_contexts(
+                               _save_matmuls))
     h = L.apply_norm(params["final_norm"], h, cfg)
     return L.logits(params["embed"], h, cfg)
 

@@ -1,0 +1,2 @@
+from .adamw import adamw_init, adamw_update, clip_by_global_norm, global_norm
+from .schedule import warmup_cosine
