@@ -102,13 +102,35 @@ After those and before 7, on the same model (trained, not served):
                  injected fault, in a fresh process under
                  ``torch.use_deterministic_algorithms(True)`` (with
                  ``CUBLAS_WORKSPACE_CONFIG``, which must be set before cuBLAS
-                 first initialises -- hence the process); both runs print
-                 OK and the recovered final state equals the uninterrupted
-                 run's, bit for bit.
+                 first initialises -- hence the process), on one process and
+                 on 4 gloo ranks (``--ranks 4 --model-parallel 2 --plan
+                 auto``); every run prints OK and each recovered final state
+                 equals the uninterrupted run's, bit for bit, on every rank.
 
 Phase 7 also fits a host-staging ``LinkClass`` (t_s, t_w) by least squares
 to the f32 bodies' walls and prints every ``*_cost`` prediction with it
 beside the body wall it measured.
+
+After 8, the trainer on a mesh of gloo ranks sharing ``cuda:0``:
+
+  train tp   -- full-width, full-depth Llama-3.2-3B on 2 ranks, mesh (1, 2),
+                 tensor parallelism 2, through the launcher's per-rank body
+                 (``launch.train.train_rank``) with the train phase's state,
+                 data and TrainConfig, 3 steps: losses finite and within
+                 2e-2 of the train phase's first three;
+  train layouts -- full width, depth cut to 2 layers, f32 compute and
+                 gradients, on 4 ranks (mesh 2 x 2), in a fresh process under
+                 deterministic algorithms: TP with all-reduce, TP + FSDP with
+                 ZeRO, dp_over_model with ZeRO, dp_over_model + FSDP with
+                 all-reduce and the layout ``plan_search`` picks (its ranking
+                 printed), 2 steps each from the same state, held against one
+                 process's steps on the card (losses, grad norms, AdamW's
+                 first moments after step 1 over the whole tree, 1e-4; each
+                 leaf's error, and the moments and parameters after step 2,
+                 printed).
+Each prints its step walls and tokens/s, every rank's peak memory and the
+bytes each rank staged a step, and the planner's predicted step time on
+the H100 constants' NVLink and on the staging link fitted in phase 7.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
@@ -741,19 +763,26 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8     # the launcher's batch and s
 # rounding, 2**-8, at different places in a few ops)
 TRAIN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 LAUNCH_ARGS = ["--steps", "8", "--ckpt-every", "3"]
+# the same on 4 gloo ranks (mesh 2 x 2), the layout the planner picks
+LAUNCH_RANKS_ARGS = LAUNCH_ARGS + ["--ranks", "4", "--model-parallel", "2", "--plan", "auto"]
 # runs the launcher twice, with an injected fault and without, in one fresh
 # process: deterministic algorithms need CUBLAS_WORKSPACE_CONFIG before cuBLAS
-# first initialises, which this process did long ago
+# first initialises, which this process did long ago (the launcher's ranks
+# take the setting from the process that launches them).  With --ranks the
+# states are the ranks' blocks, as numpy
 LAUNCH_CHILD = r"""
-import json, sys, torch
+import json, sys, numpy as np, torch
 torch.use_deterministic_algorithms(True)
 from repro_torch.launch import train
 from repro_torch.tree import leaves
 args, d_fault, d_clean = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
 s1, h1 = train.main(args + ["--ckpt-dir", d_fault, "--inject-fault-at", "5"])
 s2, h2 = train.main(args + ["--ckpt-dir", d_clean])
-print(json.dumps({"equal": all(torch.equal(a, b) for a, b in zip(leaves(s1), leaves(s2))),
-                  "steps": [h["step"] for h in h1]}))
+s1, s2 = (s1, s2) if isinstance(s1, list) else ([s1], [s2])
+eq = lambda a, b: torch.equal(a, b) if torch.is_tensor(a) else bool(np.array_equal(a, b))
+print(json.dumps({"equal": all(eq(a, b) for x, y in zip(s1, s2)
+                               for a, b in zip(leaves(x), leaves(y))),
+                  "ranks": len(s1), "steps": [h["step"] for h in h1]}))
 """
 
 
@@ -767,11 +796,11 @@ def _train_setup(cfg):
     return pcfg, tcfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
 
 
-def phase_train(cfg) -> None:
+def phase_train(cfg) -> list:
     """Full-width, full-depth steps of ``make_train_step`` on the card, each
     loss finite; step time and peak memory beside the cost model's
     predictions on H100 constants; then the forward/backward and the
-    optimizer alone, and one profiled step."""
+    optimizer alone, and one profiled step.  Returns the losses."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.core import costmodel as cm
@@ -898,6 +927,7 @@ def phase_train(cfg) -> None:
               f"{kinds['other']:.1f} ms (wall time is under the profiler)", flush=True)
     del state, m, prof
     torch.cuda.empty_cache()
+    return losses
 
 
 def _loss_and_grads(cfg, pcfg, tcfg, params, tokens):
@@ -985,31 +1015,34 @@ def phase_train_reduced(cfg) -> None:
 
 def phase_train_launcher() -> None:
     """``launch/train.py``'s main path at reduced width on the card, with
-    an injected fault, in a fresh process under deterministic algorithms;
-    the recovered final state must equal an uninterrupted run's, bit for
-    bit."""
-    with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-c", LAUNCH_CHILD, json.dumps(LAUNCH_ARGS),
-                            os.path.join(tmp, "fault"), os.path.join(tmp, "clean")],
-                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-        wall = time.perf_counter() - t0
-    lines = r.stdout.strip().splitlines()
-    if r.returncode != 0 or not lines:
-        fail(f"train launcher: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    res = json.loads(lines[-1])
-    for ln in lines[:-1]:
-        if ln.strip():
-            print(f"[train launcher] {ln}", flush=True)
-    n_ok = sum(ln.strip() == "OK" for ln in lines)
-    print(f"[train launcher] {' '.join(LAUNCH_ARGS)}, fault at step 5, deterministic "
-          f"algorithms: steps run {res['steps']}; final state bitwise equal to the "
-          f"uninterrupted run: {res['equal']}; {n_ok} x OK; {wall:.1f} s for both runs "
-          f"(process start included)", flush=True)
-    if n_ok != 2 or not res["equal"]:
-        fail("train launcher: the recovered run did not reach OK or differs from the "
-             "uninterrupted one")
+    an injected fault, in a fresh process under deterministic algorithms,
+    on one process and then on 4 gloo ranks (``--ranks 4 --model-parallel 2
+    --plan auto``); each recovered final state must equal an uninterrupted
+    run's, bit for bit (on every rank)."""
+    for args in (LAUNCH_ARGS, LAUNCH_RANKS_ARGS):
+        with tempfile.TemporaryDirectory() as tmp:
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                       CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", LAUNCH_CHILD, json.dumps(args),
+                                os.path.join(tmp, "fault"), os.path.join(tmp, "clean")],
+                               capture_output=True, text=True, env=env, cwd=ROOT, timeout=900)
+            wall = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not lines:
+            fail(f"train launcher: exit {r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        res = json.loads(lines[-1])
+        for ln in lines[:-1]:
+            if ln.strip():
+                print(f"[train launcher] {ln}", flush=True)
+        n_ok = sum(ln.strip() == "OK" for ln in lines)
+        print(f"[train launcher] {' '.join(args)}, fault at step 5, deterministic "
+              f"algorithms: steps run {res['steps']}; final state ({res['ranks']} rank(s)) "
+              f"bitwise equal to the uninterrupted run: {res['equal']}; {n_ok} x OK; "
+              f"{wall:.1f} s for both runs (process start included)", flush=True)
+        if n_ok != 2 or not res["equal"]:
+            fail(f"train launcher {' '.join(args)}: the recovered run did not reach OK or "
+                 f"differs from the uninterrupted one")
 
 
 # ---------------------------------------------------------------------------
@@ -1393,6 +1426,7 @@ def _staging_fit(res, runs) -> None:
               f"of the card's peak; {starts:.0f} start-ups and {nbytes / 2**20:.0f} MiB on "
               f"the critical path) vs body wall {r['wall']:.3f} s ({pred / r['wall']:.2f}x); "
               f"staged {r['staged'] / 2**20:.0f} MiB a rank", flush=True)
+    return link
 
 
 def _kernel_ms(km) -> float:
@@ -1546,8 +1580,9 @@ def _print_algo(name, per_rank, extra=""):
           flush=True)
 
 
-def phase_distributed() -> dict:
-    """Returns the launch counts of the main-path runs, summed over ranks."""
+def phase_distributed() -> tuple:
+    """Returns the launch counts of the main-path runs, summed over ranks,
+    and the host-staging link fitted to the f32 bodies."""
     from repro_torch import core as C
     from repro_torch.core.mesh import launch
     from repro_torch.kernels import matmul as km
@@ -1573,7 +1608,7 @@ def phase_distributed() -> dict:
             counts[kernel] += got[kernel]
     print(f"[ranks] matmul phase: {N_RANKS_MM} ranks, n = {N_MM}: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    _staging_fit(res, _mm_runs(C))
+    link = _staging_fit(res, _mm_runs(C))
 
     t0 = time.perf_counter()
     res = launch(4, rank_fw, N_FW, N_FW_FAITHFUL, 5, device="cuda", timeout=900)
@@ -1597,7 +1632,301 @@ def phase_distributed() -> dict:
         fail("floyd_warshall differs from the single-device oracle")
     print(f"[ranks] Floyd-Warshall phase: 4 ranks: {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return counts
+    return counts, link
+
+
+
+# ---------------------------------------------------------------------------
+# the trainer on a mesh: gloo rank processes sharing cuda:0
+TP_STEPS = 3                 # phase_train's state, data and TrainConfig, stopped after 3
+LAYOUT_DEPTH, LAYOUT_STEPS = 2, 2
+# bf16 compute: the ranks round their partial products and sums in bf16 at
+# other places than one process does (the tests' bf16 tolerance)
+MESH_TOL = 2e-2
+# the layouts run f32 compute and f32 gradients under deterministic
+# algorithms, where the ranks and one process differ in summation order
+# only.  Held to the tests' f32 tolerance: every step's loss and grad norm,
+# and AdamW's first moment after the first step (0.1 x that step's
+# gradient, from the same parameters) normwise over the whole tree, which
+# bounds every leaf's error by 1e-4 of the whole.  Printed, not held: each
+# leaf's own error, and the moments and parameters after the last step --
+# AdamW's first step is nearly sign(g), so an entry whose gradient lies at
+# the rounding noise moves by the rate either way, and the next gradients
+# see it
+LAYOUT_TOL = 1e-4
+# the layouts phase in a fresh process: deterministic algorithms need
+# CUBLAS_WORKSPACE_CONFIG before cuBLAS first initialises
+LAYOUTS_CHILD = r"""
+import json, sys, torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from repro_torch.core.costmodel import LinkClass
+chip_smoke.layouts_body(LinkClass(*json.loads(sys.argv[1])))
+"""
+MESH_LAYOUTS = {
+    "tp all-reduce": dict(fsdp_params=False),
+    "tp+fsdp zero": dict(fsdp_params=True, grad_reduce="reduce_scatter_zero"),
+    "dp_over_model zero": dict(fsdp_params=False, dp_over_model=True,
+                               grad_reduce="reduce_scatter_zero"),
+    "dp_over_model+fsdp all-reduce": dict(fsdp_params=True, dp_over_model=True),
+}
+
+
+def _plan_label(pcfg, mesh_shape) -> str:
+    from repro_torch.parallel.planner import ParallelPlan
+    return ParallelPlan(mesh_shape=mesh_shape, fsdp_axes=("data",) if pcfg.fsdp_params else (),
+                        tp=1 if pcfg.dp_over_model else mesh_shape[1],
+                        dp_over_model=pcfg.dp_over_model, grad=pcfg.grad_reduce,
+                        remat=pcfg.remat, opt_state_dtype=pcfg.opt_state_dtype).label()
+
+
+def _planner_times(cfg, mesh_shape, link) -> dict:
+    """label -> (predicted step s on H100 constants with NVLink between the
+    cards, the same on the fitted host-staging link with the card's peak
+    shared by the ranks)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.parallel import planner
+    n = math.prod(mesh_shape)
+    nv = planner.plan_search(cfg, mesh_shape, TRAIN_BATCH, TRAIN_SEQ, "train")
+    st = planner.plan_search(cfg, mesh_shape, TRAIN_BATCH, TRAIN_SEQ, "train", link=link,
+                             peak_flops=cm.PEAK_FLOPS_BF16 / n, hbm_bw=cm.HBM_BW / n)
+    st = {r.plan.label(): r for r in st}
+    return {r.plan.label(): (r, st[r.plan.label()]) for r in nv}
+
+
+def _print_prediction(tag, times, label) -> None:
+    if label not in times:
+        print(f"[{tag}] planner: {label} is not in the lattice (with FSDP storage it scores "
+              f"the reduction as a reduce-scatter only)", flush=True)
+        return
+    nv, st = times[label]
+    print(f"[{tag}] planner ({label}), predictions on H100 constants: "
+          f"{nv.total_s * 1e3:.1f} ms a step with NVLink between cards (compute "
+          f"{nv.cost['compute_s'] * 1e3:.1f}, TP combines {nv.cost['tp_comm_s'] * 1e3:.1f}, "
+          f"gathers {nv.cost['gather_s'] * 1e3:.1f}, grads {nv.cost['grad_s'] * 1e3:.1f}, "
+          f"update {nv.cost['update_s'] * 1e3:.1f}); on the host-staging link fitted in the "
+          f"ranks phase, the ranks sharing one card's peak and HBM: {st.total_s * 1e3:.1f} ms "
+          f"(TP combines {st.cost['tp_comm_s'] * 1e3:.1f}, gathers "
+          f"{st.cost['gather_s'] * 1e3:.1f}, grads {st.cost['grad_s'] * 1e3:.1f})", flush=True)
+
+
+def _print_ranks(tag, walls, peaks, staged, comm) -> None:
+    """Step walls (the slowest rank's), tokens/s over steps 2.., every
+    rank's peak memory, and by rank and step the bytes staged through the
+    host and the host seconds inside the collectives (``comm_seconds``)."""
+    window = walls[1:]
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    by_rank = lambda rows, f: "; ".join(f"rank {r}: " + ", ".join(f(v) for v in row)
+                                        for r, row in enumerate(rows))
+    print(f"[{tag}] step walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; over steps "
+          f"2-{len(walls)} (sum of walls / {len(window)}): {np.sum(window) / len(window) * 1e3:.1f} "
+          f"ms, {toks * len(window) / float(np.sum(window)):.0f} tokens/s; peak memory "
+          f"(max_memory_allocated) by rank: {', '.join(f'{p / 1e9:.2f}' for p in peaks)} GB; "
+          f"staged through the host a step: {by_rank(staged, lambda b: f'{b / 1e9:.3f}')} GB; "
+          f"inside the collectives a step: {by_rank(comm, lambda c: f'{c * 1e3:.0f}')} ms",
+          flush=True)
+
+
+def phase_train_tp(cfg, ref_losses, link) -> None:
+    """Full-width, full-depth Llama-3.2-3B on 2 ranks sharing the card,
+    mesh (1, 2), tensor parallelism 2, through the launcher's per-rank body
+    (``launch.train.train_rank``) with ``phase_train``'s state, data and
+    TrainConfig, stopped after 3 steps: losses finite and within MESH_TOL
+    of ``phase_train``'s first three."""
+    from repro_torch.core.mesh import launch
+    from repro_torch.launch import train
+    pcfg, tcfg, shape = _train_setup(cfg)
+    torch.cuda.empty_cache()
+    print(f"[train tp] this process before the launch: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = train.RankJob(cfg, pcfg, dataclasses.replace(tcfg, checkpoint_dir=tmp), shape,
+                            TP_STEPS, model_parallel=2, return_state=False)
+        t0 = time.perf_counter()
+        res = launch(2, train.train_rank, job, device="cuda", timeout=1500)
+        wall = time.perf_counter() - t0
+    hist = res[0]["history"]
+    losses = [h["loss"] for h in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"[train tp] {cfg.name}, {cfg.n_layers} layers, mesh (1, 2), TP 2, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat={pcfg.remat}: losses "
+          + ", ".join(f"{a:.4f} (one process {b:.4f}, relative {e:.1e})"
+                      for a, b, e in zip(losses, ref_losses, rel))
+          + f", bound {MESH_TOL}; launch {wall:.1f} s (process start and init included)",
+          flush=True)
+    _print_ranks("train tp", [max(r["history"][i]["time_s"] for r in res)
+                              for i in range(len(hist))], [r["peak_bytes"] for r in res],
+                 [[h["staged_bytes"] for h in r["history"]] for r in res],
+                 [[h["comm_s"] for h in r["history"]] for r in res])
+    _print_prediction("train tp", _planner_times(cfg, (1, 2), link), _plan_label(pcfg, (1, 2)))
+    if len(losses) != TP_STEPS or not all(np.isfinite(losses)) or not max(rel) <= MESH_TOL:
+        fail(f"train tp: losses {losses} against one process's {ref_losses[:TP_STEPS]}")
+
+
+def rank_train_layouts(device, cfg, layouts, tcfg, shape, ref_path) -> dict:
+    """One rank of the layouts phase: each layout's steps from the seed-0
+    state on the mesh (2, 2); per step the loss, grad norm, wall and bytes
+    staged, then each parameter and first-moment block's squared distance
+    to the one-process run's (and the squared norm of that), divided by the
+    number of ranks that hold the same block, so the ranks' sums are the
+    leaves' global values."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import local_block
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import steps as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.tree import leaves
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_local_mesh(2)
+    ref = torch.load(ref_path, mmap=True)
+    out = {}
+    for name, pcfg in layouts.items():
+        ctx = make_ctx(mesh, pcfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = S.init_train_state(torch.Generator(device=device).manual_seed(tcfg.seed), cfg,
+                                   pcfg, ctx)
+        step = S.make_train_step(cfg, pcfg, tcfg, ctx)
+        batches = make_batch_iterator(cfg, shape, seed=tcfg.seed, device=device,
+                                      shard=(mesh.index(ctx.batch_axes),
+                                             mesh.size(ctx.batch_axes)))
+        hist, m1 = [], None
+        for _ in range(LAYOUT_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            dist.barrier()
+            staged, comm, t0 = mesh.staged_bytes, mesh.comm_seconds, time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            hist.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                             wall=time.perf_counter() - t0, staged=mesh.staged_bytes - staged,
+                             comm=mesh.comm_seconds - comm))
+            if m1 is None:
+                m1 = [t.clone() for t in leaves(state["opt"]["m"])]
+        batches.close()
+        specs = S.train_state_shardings(cfg, pcfg, ctx, S.abstract_train_state(cfg, pcfg))
+        errs = {}
+        for key, got, spec in (("params", leaves(state["params"]), specs["params"]),
+                               ("m", leaves(state["opt"]["m"]), specs["opt"]["m"]),
+                               ("m1", m1, specs["opt"]["m"])):
+            errs[key] = []
+            for p, sp, r in zip(got, leaves(spec), ref[key]):
+                want = local_block(r, sp, mesh).to(device)
+                named = [a for part in sp if part is not None
+                         for a in (part if isinstance(part, tuple) else (part,))]
+                copies = mesh.size(mesh.axis_names) // mesh.size(
+                    tuple(a for a in mesh.axis_names if a in named))
+                errs[key].append((float(((p.float() - want) ** 2).sum()) / copies,
+                                  float((want ** 2).sum()) / copies))
+        out[name] = dict(hist=hist, errs=errs, peak=torch.cuda.max_memory_allocated())
+        del state, step, batch, m
+    return out
+
+
+def phase_train_layouts(link) -> None:
+    """``layouts_body`` in a fresh process under deterministic algorithms
+    (its lines relayed; it fails the run by its exit code)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    r = subprocess.run([sys.executable, "-c", LAYOUTS_CHILD, json.dumps([link.t_s, link.t_w])],
+                       capture_output=True, text=True, env=env, cwd=ROOT, timeout=1500)
+    for ln in r.stdout.splitlines():
+        print(ln, flush=True)
+    if r.returncode != 0:
+        fail(f"train layouts: exit {r.returncode}\n{r.stderr[-3000:]}")
+
+
+def layouts_body(link) -> None:
+    """Full width, depth cut to LAYOUT_DEPTH layers, on 4 ranks (mesh 2 x 2):
+    TP with all-reduce, TP + FSDP with ZeRO, dp_over_model with ZeRO,
+    dp_over_model + FSDP with all-reduce, and the layout ``plan_search``
+    picks for the mesh, LAYOUT_STEPS steps each from the seed-0 state in
+    f32 compute and gradients, each held against one process's steps on
+    the card (losses, grad norms, the first moments after the first step
+    over the whole tree, LAYOUT_TOL).  Runs in a process, and ranks, under
+    deterministic algorithms."""
+    from repro_torch import configs
+    from repro_torch.core.mesh import launch
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.parallel import planner
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, leaves_with_path
+    cfg = configs.get(ARCH).replace(n_layers=LAYOUT_DEPTH, dtype="float32")
+    pcfg, tcfg, shape = _train_setup(cfg)
+    pcfg = dataclasses.replace(pcfg, grad_dtype="float32")
+    ranked = planner.plan_search(cfg, (2, 2), TRAIN_BATCH, TRAIN_SEQ, "train")
+    pick = planner.best_plan(ranked)
+    print(f"[train layouts] {cfg.name} at full width, {LAYOUT_DEPTH} of 28 layers, f32 compute, "
+          f"deterministic algorithms, mesh (2, 2); "
+          f"plan_search on H100 constants (predictions) picks {pick.label()}; the head of its "
+          f"ranking:", flush=True)
+    for ln in planner.format_plan_table(ranked, top=6).splitlines():
+        print(f"[train layouts]   {ln}", flush=True)
+    layouts = {k: dataclasses.replace(pcfg, **kw) for k, kw in MESH_LAYOUTS.items()}
+    layouts["plan_search pick"] = dataclasses.replace(pick.to_pcfg(), grad_dtype="float32")
+    # the one-process reference on the card
+    state = S.init_train_state(torch.Generator(device="cuda").manual_seed(tcfg.seed), cfg, pcfg)
+    step = S.make_train_step(cfg, pcfg, tcfg)
+    batches = make_batch_iterator(cfg, shape, seed=tcfg.seed, device="cuda")
+    ref, m1 = [], None
+    for _ in range(LAYOUT_STEPS):
+        state, m = step(state, next(batches))
+        ref.append((float(m["loss"]), float(m["grad_norm"])))
+        if m1 is None:
+            m1 = [t.detach().to("cpu", copy=True) for t in leaves(state["opt"]["m"])]
+    batches.close()
+    times = _planner_times(cfg, (2, 2), link)
+    paths = ["/".join(map(str, p)) for p, _ in leaves_with_path(state["params"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save({"m1": m1, **{k: [t.detach().cpu() for t in leaves(tree)] for k, tree in
+                                 (("params", state["params"]), ("m", state["opt"]["m"]))}},
+                   path)
+        del state, step, m
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = launch(4, rank_train_layouts, cfg, layouts, tcfg, shape, path, device="cuda",
+                     timeout=1500)
+        wall = time.perf_counter() - t0
+    print(f"[train layouts] one process: losses {', '.join(f'{a:.4f}' for a, _ in ref)}, grad "
+          f"norms {', '.join(f'{b:.3f}' for _, b in ref)}; launch of the 4 ranks for all "
+          f"{len(layouts)} layouts {wall:.1f} s", flush=True)
+    bad = []
+    for name, pc in layouts.items():
+        per = [r[name] for r in res]
+        hist = per[0]["hist"]
+        lrel = max(abs(h["loss"] - a) / abs(a) for h, (a, _) in zip(hist, ref))
+        grel = max(abs(h["grad_norm"] - b) / abs(b) for h, (_, b) in zip(hist, ref))
+        def errors(key):
+            """(whole tree normwise, worst leaf's own normwise, its path)."""
+            d = [sum(r["errs"][key][i][0] for r in per) for i in range(len(paths))]
+            n = [sum(r["errs"][key][i][1] for r in per) for i in range(len(paths))]
+            e = [(a / b) ** 0.5 for a, b in zip(d, n)]
+            return (sum(d) / sum(n)) ** 0.5, max(e), paths[int(np.argmax(e))]
+
+        (m1tree, m1leaf_err, m1leaf), (mtree, mleaf_err, mleaf), (_, perr, pleaf) = (
+            errors("m1"), errors("m"), errors("params"))
+        got = ", ".join(f"{h['loss']:.4f}" for h in hist)
+        print(f"[train layouts] {name} ({_plan_label(pc, (2, 2))}): losses {got}, worst "
+              f"relative to one process: "
+              f"loss {lrel:.1e}, grad norm {grel:.1e}, first moments after step 1 normwise "
+              f"over the tree {m1tree:.1e} (bound {LAYOUT_TOL}); not held: the worst leaf "
+              f"there {m1leaf_err:.1e} ({m1leaf}); after step {LAYOUT_STEPS} the moments "
+              f"{mtree:.1e} over the tree, {mleaf_err:.1e} the worst leaf ({mleaf}), the "
+              f"parameters {perr:.1e} the worst leaf ({pleaf})", flush=True)
+        _print_ranks(f"train layouts] [{name}", [max(r["hist"][i]["wall"] for r in per)
+                                                 for i in range(LAYOUT_STEPS)],
+                     [r["peak"] for r in per], [[h["staged"] for h in r["hist"]] for r in per],
+                     [[h["comm"] for h in r["hist"]] for r in per])
+        _print_prediction(f"train layouts] [{name}", times, _plan_label(pc, (2, 2)))
+        if not (max(lrel, grel, m1tree) <= LAYOUT_TOL and
+                all(np.isfinite(h["loss"]) for h in hist)):
+            bad.append(name)
+    if bad:
+        fail(f"train layouts: {bad} differ from one process's steps beyond {LAYOUT_TOL}")
 
 
 # ---------------------------------------------------------------------------
@@ -1642,10 +1971,12 @@ def main() -> None:
     _timed("oracle aligned", phase_oracle_aligned, cfg, params, comp)
     del params
     torch.cuda.empty_cache()
-    _timed("train", phase_train, cfg)
+    train_losses = _timed("train", phase_train, cfg)
     _timed("train reduced", phase_train_reduced, cfg)
     _timed("train launcher", phase_train_launcher)
-    counts = _timed("ranks", phase_distributed)
+    counts, link = _timed("ranks", phase_distributed)
+    _timed("train tp", phase_train_tp, cfg, train_losses, link)
+    _timed("train layouts", phase_train_layouts, link)
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     kernels = [
         _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",

@@ -1,1 +1,2 @@
-from .store import AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint
+from .store import (AsyncCheckpointer, ShardedCheckpointer, latest_step, restore_checkpoint,
+                    save_checkpoint)

@@ -18,6 +18,10 @@ what ``np.load`` returns without ``ml_dtypes``; ``restore_checkpoint`` reads
 both through the manifest's dtype.
 
 ``AsyncCheckpointer`` moves serialization + fsync off the training thread.
+``ShardedCheckpointer`` saves a state held as blocks on the ranks of a mesh
+in the same layout of full leaves (one writer), and ``restore_checkpoint``'s
+``transform`` cuts each full leaf to a rank's block as it is read: a
+checkpoint written by p ranks restores on any number, and in JAX.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, tree_map, tree_unflatten
+from repro_torch.core.mesh import ProcessMesh, assemble
+from repro_torch.tree import leaves, leaves_with_path, tree_map, tree_unflatten
 
 Tree = Any
 
@@ -96,21 +101,25 @@ def _load(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def restore_checkpoint(directory: str, step: int, like: Tree, device=None) -> Tree:
+def restore_checkpoint(directory: str, step: int, like: Tree, device=None,
+                       transform=None) -> Tree:
     """Restore into the structure of ``like`` (real or ``meta`` tensors),
     with the dtypes the checkpoint stored.  Each leaf goes to ``device``, or
     to ``like``'s leaf's device when ``device`` is None (a ``meta`` leaf then
-    needs an explicit ``device``)."""
+    needs an explicit ``device``).  ``transform(path, leaf)`` replaces each
+    leaf as it is read (a rank keeps its block), so the whole tree is never
+    held at once."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
+    paths = {_SEP.join(str(k) for k in p): p for p, _ in leaves_with_path(like)}
     out = []
     for key, leaf in _flatten(like).items():
         dev = device if device is not None else getattr(leaf, "device", "cpu")
         if torch.device(dev).type == "meta":
             raise ValueError("restore_checkpoint: pass device= to restore a meta tree")
-        out.append(_load(os.path.join(path, f"{key}.proc0.npy"),
-                         manifest[key]["dtype"]).to(dev))
+        t = _load(os.path.join(path, f"{key}.proc0.npy"), manifest[key]["dtype"]).to(dev)
+        out.append(t if transform is None else transform(paths[key], t))
     return tree_unflatten(like, out)
 
 
@@ -148,4 +157,43 @@ class AsyncCheckpointer:
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
+            raise err
+
+
+class ShardedCheckpointer:
+    """Checkpoints of a state held as blocks on the ranks of ``mesh`` (laid
+    out by the spec tree ``specs``), in the layout of full leaves.
+
+    ``save`` assembles each leaf from its blocks (every rank takes part,
+    leaf by leaf in one order) and rank 0 writes the full tree in the
+    background (``AsyncCheckpointer``).  ``wait`` is the fence: it returns
+    on every rank only after rank 0's commit, so every rank then reads the
+    same ``latest_step``."""
+
+    def __init__(self, directory: str, mesh: ProcessMesh, specs: Tree):
+        self.mesh, self.specs = mesh, specs
+        self._writer = AsyncCheckpointer(directory) if mesh.rank == 0 else None
+
+    def save(self, step: int, tree: Tree) -> None:
+        self.wait()
+        with torch.no_grad():
+            full = []
+            for x, spec in zip(leaves(tree), leaves(self.specs)):
+                whole = assemble(x, spec, self.mesh)
+                full.append(whole if self._writer is not None else None)
+                del whole
+        if self._writer is not None:
+            self._writer.save(step, tree_unflatten(tree, full))
+
+    def wait(self) -> None:
+        """Block until the save in flight has committed on rank 0, on every
+        rank; raise its error (on rank 0, after the fence)."""
+        err = None
+        if self._writer is not None:
+            try:
+                self._writer.wait()
+            except Exception as e:   # raised after the fence, so no rank hangs
+                err = e
+        torch.distributed.barrier()
+        if err is not None:
             raise err

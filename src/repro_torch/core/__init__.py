@@ -1,7 +1,7 @@
 """FooPar core of the port: the process mesh, the Table-1 algebra, grids and
 the paper's algorithms (DNS / SUMMA / Cannon matmul, Floyd-Warshall) on
-gloo ranks, and the Table-1 cost model (``costmodel``).  ``tensor_ops`` is
-not ported yet."""
+gloo ranks, the Table-1 cost model (``costmodel``) and the tensor-parallel
+matmuls of the LM (``tensor_ops``)."""
 from .mesh import P, ProcessMesh, launch, spmd
 from .dseq import (DSeq, reduce_d, shift_d, all_gather_d, all_to_all_d, apply_d,
                    scan_d, reduce_scatter_d, ring_shift_d, all_gather_ring_d)

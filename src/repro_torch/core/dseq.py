@@ -20,6 +20,20 @@ Each function keeps the reference's name, arguments and semantics:
 Where the reference selects with a traced predicate (``jnp.where`` on the
 axis index), the port branches on the rank's index, a Python int.  Elements
 are tensors or tuples / lists / dicts of tensors.
+
+Four of the operations are differentiable, each a ``torch.autograd.Function``
+whose backward is its transpose -- what ``shard_map``'s transpose and GSPMD's
+partitioner give the reference:
+
+  forward                          backward
+  reduceD("sum")                   identity
+  copy_d (identity, replicated x)  reduceD("sum")   (a column-parallel input)
+  allGatherD (tiled, any dim)      reduceScatterD("sum") on that dim
+  allToAllD                        the inverse allToAllD
+
+Each holds its mesh, so a backward pass (and the recompute of a
+checkpointed region) issues its collectives outside any ``with mesh:``
+block, in the same order on every rank of the group.
 """
 from __future__ import annotations
 
@@ -43,6 +57,114 @@ def _tmap(f: Callable, *trees):
     return f(*trees)
 
 
+# ---------------------------------------------------------------------------
+# the differentiable collectives: forward and transpose
+# ---------------------------------------------------------------------------
+def _all_gather_dim(mesh: ProcessMesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    g = mesh.all_gather(x, axes)                          # (p, *x.shape)
+    return g.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _reduce_scatter_dim(mesh: ProcessMesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    return mesh.reduce_scatter_sum(x.movedim(dim, 0), axes).movedim(0, dim)
+
+
+def _all_to_all_dims(mesh: ProcessMesh, x: torch.Tensor, axes, split: int,
+                     concat: int) -> torch.Tensor:
+    p, n = mesh.size(axes), x.shape[split]
+    if n % p:
+        raise ValueError(f"all_to_all: dim {split} of {tuple(x.shape)} does not split {p} ways")
+    # (p, ..., n / p, ...): chunk i of dim ``split`` leads, bound for element i
+    chunks = x.unflatten(split, (p, n // p)).movedim(split, 0)
+    got = mesh.all_to_all(chunks, axes)                   # leading dim: the source
+    return got.movedim(0, concat).flatten(concat, concat + 1)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, "sum", axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, "sum", ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather_dim(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split, concat):
+        ctx.mesh, ctx.axes, ctx.split, ctx.concat = mesh, axes, split, concat
+        return _all_to_all_dims(mesh, x, axes, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all_dims(ctx.mesh, g, ctx.axes, ctx.concat, ctx.split),
+                None, None, None, None)
+
+
+def _grouped(mesh: ProcessMesh, axis) -> bool:
+    """Whether ``axis`` names a group of more than one rank."""
+    return mesh.size(axis) > 1
+
+
+def reduce_sum(x: torch.Tensor, axis, mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """``reduceD("sum")`` of one tensor; its transpose is the identity."""
+    mesh = mesh or current()
+    return _ReduceSum.apply(x, mesh, axis) if _grouped(mesh, axis) else x
+
+
+def copy_d(x: torch.Tensor, axis, mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """The identity on a tensor replicated over the group, whose transpose
+    sums the cotangent over the group (``reduceD("sum")``): the input of a
+    column-parallel product, which each element multiplies by its own slice
+    of the weight, so each holds part of the input's gradient."""
+    mesh = mesh or current()
+    return _Copy.apply(x, mesh, axis) if _grouped(mesh, axis) else x
+
+
+def all_gather_dim(x: torch.Tensor, axis, dim: int = 0,
+                   mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """``allGatherD`` tiled along ``dim`` (the group's blocks concatenated
+    in element order); its transpose reduce-scatters the cotangent (sum)
+    along ``dim``."""
+    mesh = mesh or current()
+    return _AllGather.apply(x, mesh, axis, dim % x.dim()) if _grouped(mesh, axis) else x
+
+
+def all_to_all_dim(x: torch.Tensor, axis, split: int, concat: int,
+                   mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """``allToAllD`` over dims: chunk i of ``split`` goes to element i, the
+    chunks received are concatenated along ``concat`` in source order.  Its
+    transpose is the inverse, ``all_to_all_dim(g, axis, concat, split)``."""
+    mesh = mesh or current()
+    if not _grouped(mesh, axis):
+        return x
+    return _AllToAll.apply(x, mesh, axis, split % x.dim(), concat % x.dim())
+
+
+# ---------------------------------------------------------------------------
 def axis_index(axis) -> int:
     return current().index(axis)
 
@@ -58,6 +180,8 @@ def reduce_d(x: Pytree, op: Callable | str, axis, *, root: int | None = None) ->
     with ``root``, moves the result to ``root`` and leaves zeros elsewhere."""
     mesh = current()
     idx = mesh.index(axis)
+    if op == "sum" and root is None:
+        return _tmap(lambda l: reduce_sum(l, axis, mesh), x)
     if isinstance(op, str):
         out = _tmap(lambda l: mesh.all_reduce(l, op, axis), x)
         if root is None or idx == root:
@@ -92,20 +216,23 @@ def shift_d(x: Pytree, delta: int, axis) -> Pytree:
 
 
 def all_gather_d(x: Pytree, axis, *, tiled: bool = False) -> Pytree:
-    """FooPar ``allGatherD``: (p, ...) stacked, or concatenated with ``tiled``."""
+    """FooPar ``allGatherD``: (p, ...) stacked, or concatenated with ``tiled``
+    (differentiable: the transpose reduce-scatters)."""
     mesh = current()
 
     def gather(l):
-        g = mesh.all_gather(l, axis)
-        return g.reshape((-1,) + tuple(l.shape[1:])) if tiled else g
+        if tiled:
+            return all_gather_dim(l, axis, 0, mesh)
+        return all_gather_dim(l[None], axis, 0, mesh) if _grouped(mesh, axis) else l[None]
 
     return _tmap(gather, x)
 
 
 def all_to_all_d(x: Pytree, axis) -> Pytree:
-    """FooPar ``allToAllD``: the local leading dim indexes the destination."""
+    """FooPar ``allToAllD``: the local leading dim indexes the destination
+    (differentiable: the transpose is the same exchange)."""
     mesh = current()
-    return _tmap(lambda l: mesh.all_to_all(l, axis), x)
+    return _tmap(lambda l: all_to_all_dim(l, axis, 0, 0, mesh), x)
 
 
 def apply_d(x: Pytree, i: int, axis) -> Pytree:

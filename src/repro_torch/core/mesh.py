@@ -22,10 +22,16 @@ ranks on one device) or on the CPU:
 the tensor is on the card) and back, by one code path for every operation, so
 the CPU tests run the same path as the card.  The data lives on the rank's
 device and every local product runs there; only messages cross the host.
-``ProcessMesh.staged_bytes`` counts the bytes copied each way.
+``ProcessMesh.staged_bytes`` counts the bytes copied each way, and
+``ProcessMesh.comm_seconds`` the host time spent inside the blocking
+all-reduce, all-gather, all-to-all and reduce-scatter, from the moment the
+device has finished the work queued before each (so it counts the staging
+copies, the transfer and the wait for the group's other ranks, not this
+rank's own device work).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import os
@@ -46,10 +52,12 @@ _ACTIVE: List["ProcessMesh"] = []      # the mesh a running spmd body is inside
 
 class P(tuple):
     """A partition spec, as ``jax.sharding.PartitionSpec``: entry d names the
-    mesh axis that splits dimension d, or is None (not split)."""
+    mesh axis (or a tuple of axes, split row-major) that splits dimension
+    d, or is None (not split).  A one-axis tuple is that axis, as in JAX."""
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                                     for e in entries))
 
 
 def current() -> "ProcessMesh":
@@ -58,6 +66,22 @@ def current() -> "ProcessMesh":
         raise RuntimeError("no active ProcessMesh: group operations run inside "
                            "spmd(...) or a `with mesh:` block")
     return _ACTIVE[-1]
+
+
+def _clocked(method):
+    """Adds the call's host time to ``self.comm_seconds``, after waiting for
+    the device work queued before it (a device-to-host copy waits for it
+    anyway)."""
+    @functools.wraps(method)
+    def run(self, x, *args, **kwargs):
+        if x.is_cuda:
+            torch.cuda.current_stream(x.device).synchronize()
+        t0 = time.perf_counter()
+        try:
+            return method(self, x, *args, **kwargs)
+        finally:
+            self.comm_seconds += time.perf_counter() - t0
+    return run
 
 
 class Pending:
@@ -73,29 +97,16 @@ class Pending:
         return self._finish()
 
 
-class ProcessMesh:
-    """A Cartesian mesh over the ranks of the default process group.
-
-    Every rank must build the same meshes in the same order: creating a
-    group is collective over the whole world, members or not."""
+class AbstractMesh:
+    """A mesh's shape and axis names with no processes behind it (JAX's
+    ``AbstractMesh``): what the sharding rules and the planner read."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names):
             raise ValueError(f"shape {self.shape} and axes {self.axis_names} differ in rank")
-        world = dist.get_world_size()
-        if math.prod(self.shape) != world:
-            raise ValueError(f"mesh {self.shape} needs {math.prod(self.shape)} ranks; "
-                             f"the process group has {world}")
-        self.rank = dist.get_rank()
-        self.coords = tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
-        self.staged_bytes = 0
-        self._groups = {}
-        for a in self.axis_names:
-            self._group((a,))
 
-    # -- coordinates -------------------------------------------------------
     def _axes(self, axes) -> Axes:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         pos = [self.axis_names.index(a) for a in axes]
@@ -107,6 +118,28 @@ class ProcessMesh:
     def size(self, axes) -> int:
         return math.prod(self.shape[self.axis_names.index(a)] for a in self._axes(axes))
 
+
+class ProcessMesh(AbstractMesh):
+    """A Cartesian mesh over the ranks of the default process group.
+
+    Every rank must build the same meshes in the same order: creating a
+    group is collective over the whole world, members or not."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        super().__init__(shape, axis_names)
+        world = dist.get_world_size()
+        if math.prod(self.shape) != world:
+            raise ValueError(f"mesh {self.shape} needs {math.prod(self.shape)} ranks; "
+                             f"the process group has {world}")
+        self.rank = dist.get_rank()
+        self.coords = tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
+        self.staged_bytes = 0
+        self.comm_seconds = 0.0
+        self._groups = {}
+        for a in self.axis_names:
+            self._group((a,))
+
+    # -- coordinates -------------------------------------------------------
     def index(self, axes) -> int:
         """This rank's linear index over ``axes`` (row-major)."""
         idx = 0
@@ -141,6 +174,13 @@ class ProcessMesh:
         self._groups[axes] = mine
         return mine
 
+    def make_groups(self, *axes_sets) -> None:
+        """Create the groups of each set of axes now: a collective over the
+        whole world, so every rank calls it at the same point."""
+        for axes in axes_sets:
+            if axes:
+                self._group(axes)
+
     def __enter__(self):
         _ACTIVE.append(self)
         return self
@@ -163,6 +203,7 @@ class ProcessMesh:
         return h.to(device, non_blocking=True)
 
     # -- collectives (group-relative indices, as in JAX) -------------------
+    @_clocked
     def all_reduce(self, x: torch.Tensor, op: str, axes) -> torch.Tensor:
         group, members = self._group(axes)
         if group is None:
@@ -183,6 +224,7 @@ class ProcessMesh:
         dist.broadcast(h, src=dist.get_global_rank(group, src), group=group)
         return x if me == src else self._to_device(h, x.device)
 
+    @_clocked
     def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
         """(p, *x.shape): element i of the group at position i."""
         group, members = self._group(axes)
@@ -193,6 +235,7 @@ class ProcessMesh:
         dist.all_gather(parts, h, group=group)
         return self._to_device(torch.stack(parts), x.device)
 
+    @_clocked
     def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Chunk i of the leading dim goes to element i; the received chunks
         are concatenated in source order."""
@@ -204,6 +247,7 @@ class ProcessMesh:
         dist.all_to_all_single(out, h, group=group)
         return self._to_device(out, x.device)
 
+    @_clocked
     def reduce_scatter_sum(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Sum over the group; element i keeps chunk i of the leading dim."""
         group, members = self._group(axes)
@@ -262,24 +306,29 @@ def local_block(x: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
     return x
 
 
-def _assemble(x: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
-    """The global value of local blocks ``x`` laid out by ``spec``.  Axes the
-    spec leaves out are replicated: each rank reads them at its own
-    coordinate, so rank 0 reads coordinate 0."""
-    named = [a for a in spec if a is not None]
+def assemble(x: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
+    """The global value of local blocks ``x`` laid out by ``spec`` (the
+    inverse of ``local_block``; an entry may name a tuple of axes, split
+    row-major).  Axes the spec leaves out are replicated: each rank reads
+    them at its own coordinate, so rank 0 reads coordinate 0."""
+    parts = [() if a is None else (a if isinstance(a, tuple) else (a,)) for a in spec]
+    named = {a for part in parts for a in part}
     axes = tuple(a for a in mesh.axis_names if a in named)
     if not axes:
         return x
     blocks = mesh.all_gather(x, axes)                     # (p_named, *x.shape)
     sizes = [mesh.size(a) for a in axes]
-    out = x.new_empty(tuple(s * mesh.size(a) if a is not None else s
-                            for s, a in zip(x.shape, spec)))
+    out = x.new_empty(tuple(s * mesh.size(part) for s, part in
+                            zip(x.shape, parts + [()] * (x.dim() - len(parts)))))
     for lin in range(blocks.shape[0]):
         at = dict(zip(axes, np.unravel_index(lin, sizes)))
         view = out
-        for d, a in enumerate(spec):
-            if a is not None:
-                view = view.narrow(d, int(at[a]) * x.shape[d], x.shape[d])
+        for d, part in enumerate(parts):
+            if part:
+                i = 0
+                for a in part:
+                    i = i * mesh.size(a) + int(at[a])
+                view = view.narrow(d, i * x.shape[d], x.shape[d])
         view.copy_(blocks[lin])
     return out
 
@@ -299,8 +348,8 @@ def spmd(body: Callable, mesh: ProcessMesh, in_specs, out_specs) -> Callable:
         with mesh:
             out = body(*(local_block(a, s, mesh) for a, s in zip(args, specs)))
             if single_out:
-                return _assemble(out, out_specs, mesh)
-            return tuple(_assemble(o, s, mesh) for o, s in zip(out, out_specs))
+                return assemble(out, out_specs, mesh)
+            return tuple(assemble(o, s, mesh) for o, s in zip(out, out_specs))
 
     return run
 

@@ -9,7 +9,9 @@ numpy generator, copied.
 Per-process slicing: with ``torch.distributed`` initialised, each process
 takes its slice of the global batch by rank (global row indices, so an
 elastic resize keeps the global batch's content); otherwise the slice is
-the whole batch.  Tokens land on the caller's device as int32.
+the whole batch.  ``shard=(index, count)`` names the slice instead: a rank
+of a mesh takes its index over the batch axes, so the ranks of one
+``model`` group read the same rows.  Tokens land on the caller's device as int32.
 
 A background thread prefetches ``prefetch`` batches ahead; an error it\nmeets is raised in the consumer.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,10 +53,15 @@ class SyntheticTokens:
         return np.stack(rows)
 
 
-def _process_slice(global_batch: int):
+def _process_slice(global_batch: int, shard: Optional[Tuple[int, int]] = None):
     dist = torch.distributed
-    n_proc, pidx = ((dist.get_world_size(), dist.get_rank())
-                    if dist.is_available() and dist.is_initialized() else (1, 0))
+    if shard is not None:
+        pidx, n_proc = shard
+    else:
+        n_proc, pidx = ((dist.get_world_size(), dist.get_rank())
+                        if dist.is_available() and dist.is_initialized() else (1, 0))
+    if global_batch % n_proc:
+        raise ValueError(f"global batch {global_batch} does not split {n_proc} ways")
     per = global_batch // n_proc
     return pidx * per, (pidx + 1) * per
 
@@ -62,11 +69,12 @@ def _process_slice(global_batch: int):
 def make_batch_iterator(cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
                         start_step: int = 0, prefetch: int = 2,
                         frames_dim: Optional[int] = None,
-                        device="cuda") -> Iterator[dict]:
+                        device="cuda",
+                        shard: Optional[Tuple[int, int]] = None) -> Iterator[dict]:
     """Yields {'tokens': (B, S) int32} (+ 'frames' (B, F, d) f32 for enc-dec)
-    on ``device``."""
+    on ``device``: this process's rows, or slice ``shard = (index, count)``."""
     ds = SyntheticTokens(cfg.vocab, shape.seq_len, shape.global_batch, seed)
-    lo, hi = _process_slice(shape.global_batch)
+    lo, hi = _process_slice(shape.global_batch, shard)
 
     def produce(step: int) -> dict:
         out = {"tokens": torch.from_numpy(ds.batch_at(step, lo, hi)).to(device)}

@@ -22,8 +22,34 @@ Pure functions over dict params, mirroring the JAX package's
     backward pass, so attention that autograd records (a train step) runs
     ``_sdpa``, as JAX's train step does.
 
-Sharding constraints, the manual sequence-sharded attention and the FooPar
-tensor-parallel MLP are not ported yet (ROADMAP, port queue).
+Under a mesh ctx (``models.moe.MeshCtx``) every function runs inside one
+rank on its local blocks (``parallel/sharding.py`` gives each weight's
+spec), and where JAX's GSPMD inserts a collective to meet a
+``with_sharding_constraint`` (``_cstr``), the port issues the
+redistribution between the two placements itself, from the Table-1
+collectives of ``core/dseq.py`` (differentiable; the source layout is known
+by construction):
+
+  * a weight sharded over the fsdp axes is all-gathered before its product
+    (its gradient is reduce-scattered), as GSPMD does for ``P(fsdp, 'model')``;
+  * attention (Ulysses, heads never sharded): the column-parallel q goes to
+    sequence-sharded full heads by ``allToAllD``, k and v to replicated by
+    ``allGatherD``, each rank attends with its S/p query rows
+    (``_sdpa_manual``: the causal offset is the shard's row base), the
+    output goes back to feature-sharded by ``allToAllD`` for the
+    row-parallel ``wo``, whose partial products ``reduceD("sum")``;
+  * the MLP is the FooPar chain of ``core/tensor_ops.py`` (``_mlp_foopar``):
+    GSPMD's partition of this layout is that same column/row pattern;
+  * ``embed`` looks up its vocabulary shard, masks the rows outside it and
+    ``reduceD("sum")``s; tied ``logits`` stay vocabulary-sharded for the
+    vocab-parallel cross-entropy (``parallel/steps.py``).
+
+A replicated activation entering a column-parallel product passes through
+``copy_d`` (its gradient is summed over ``model``), so every
+model-replicated tensor's gradient is the same on each rank of the group.
+Under ``dp_over_model`` nothing is model-sharded and attention is local.
+A ctx together with a cache (the serve engine on a mesh) is not ported
+(ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -34,8 +60,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, torch_dtype
+from repro_torch.core.dseq import all_gather_dim, all_to_all_dim, copy_d, reduce_sum
+from repro_torch.core.tensor_ops import foopar_matmul_col, foopar_matmul_row
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.parallel.sharding import leaf_spec
 
 Params = dict
 NEG_INF = -1e30
@@ -249,6 +278,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos=None,
               block_tables: Optional[torch.Tensor] = None,
+              ctx=None,
               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Self-attention.
 
@@ -265,7 +295,22 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     tensor ``cache_pos`` (one token per row, read by the paged-attention
     kernel); chunked prefill is a scalar ``cache_pos`` (one request, B=1,
     attending causally over the gathered page view).
+    With ``ctx`` and no cache: the sequence-sharded region of the module
+    docstring (``_attention_ctx``).
     """
+    if ctx is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "attention with a cache under a mesh ctx (the serve engine with a "
+                "model-sharded cache) is not ported (ROADMAP queue 1, item 9)")
+        if _tp_axis(ctx) is not None:
+            return _attention_ctx(p, x, positions, cfg, causal=causal, ctx=ctx), None
+        # pure DP: the attention of one device on the gathered weights
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+                  "wo": (hq * hd, d)}
+        p = dict(p, **{n: _weight(p[n], ("attn", n), shape, cfg, ctx, dtype=_dtype(cfg))
+                       for n, shape in shapes.items()})
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = hq // hkv
@@ -371,6 +416,86 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
 
 
 # ---------------------------------------------------------------------------
+# Under a mesh ctx
+# ---------------------------------------------------------------------------
+def _tp_axis(ctx) -> Optional[str]:
+    """The model axis the layers shard over, or None (pure DP)."""
+    return None if ctx.dp_over_model else ctx.model_axis
+
+
+def _weight(w: torch.Tensor, names: Tuple[str, ...], shape: Tuple[int, ...], cfg: ModelConfig,
+            ctx, *, model_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None
+            ) -> torch.Tensor:
+    """The block of weight ``w`` (global ``shape``, path ``names``) this rank
+    multiplies with: cast to ``dtype`` (so a bf16 compute gathers bf16), then
+    all-gathered over the fsdp axes on every dim its spec shards over them.
+    ``model_dim``: the dim the TP layer needs split over ``model``; a rule
+    partition that ``sanitize_spec`` dropped there raises."""
+    spec = leaf_spec(names, shape, cfg, ctx)
+    tp = _tp_axis(ctx)
+    if model_dim is not None and tp is not None and spec[model_dim] != tp:
+        raise NotImplementedError(
+            f"{'/'.join(names)} {shape}: the rule table's {tp!r} partition of dim "
+            f"{model_dim} was dropped ({shape[model_dim]} % {ctx.model_size} != 0); the "
+            f"tensor-parallel layers need it")
+    if dtype is not None:
+        w = w.to(dtype)
+    for d, part in enumerate(spec):
+        axes = () if part is None else (part if isinstance(part, tuple) else (part,))
+        fsdp = tuple(a for a in axes if a in ctx.fsdp_axes)
+        if fsdp:
+            w = all_gather_dim(w, fsdp, d, ctx.mesh)
+    return w
+
+
+def _sdpa_manual(q, k, v, ctx, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Sequence-sharded attention inside one rank: ``q`` holds this shard's
+    S/p query rows (full heads), ``k``/``v`` the full (GQA-small) keys; the
+    causal mask offsets by the shard's global row base."""
+    off = ctx.mesh.index(ctx.model_axis) * q.shape[1]
+    return _sdpa(q, k, v, causal=causal, window=window, q_offset=off)
+
+
+def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
+                   causal: bool, ctx) -> torch.Tensor:
+    """Full-sequence attention on this rank's batch rows ``x`` (b, S, d),
+    replicated over ``model``; returns the rank's (b, S, d) output, also
+    replicated.  Heads are never sharded (GQA head counts rarely divide
+    TP): the einsum region is sequence-sharded over ``model``."""
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rep = hq // hkv
+    dt, mesh, M = _dtype(cfg), ctx.mesh, ctx.model_axis
+    wq = _weight(p["wq"], ("attn", "wq"), (d, hq * hd), cfg, ctx, model_dim=1, dtype=dt)
+    wk = _weight(p["wk"], ("attn", "wk"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
+    wv = _weight(p["wv"], ("attn", "wv"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
+    wo = _weight(p["wo"], ("attn", "wo"), (hq * hd, d), cfg, ctx, model_dim=0, dtype=dt)
+    if s % ctx.model_size:
+        raise ValueError(f"sequence-sharded attention: S = {s} does not split "
+                         f"{ctx.model_size} ways over {M!r}")
+    s_loc = s // ctx.model_size
+    row0 = mesh.index(M) * s_loc
+    xm = copy_d(x, M, mesh)                   # column-parallel input
+    # q: feature-sharded -> sequence-sharded full heads; k, v: replicated
+    q = all_to_all_dim(dense(xm, wq, cfg), M, 1, 2, mesh)
+    k = all_gather_dim(dense(xm, wk, cfg), M, 2, mesh)
+    v = all_gather_dim(dense(xm, wv, cfg), M, 2, mesh)
+    q = q.reshape(b, s_loc, hkv, rep, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    q = rope(q.reshape(b, s_loc, hq, hd), positions[row0:row0 + s_loc], cfg)
+    q = q.reshape(b, s_loc, hkv, rep, hd)
+    k = rope(k, positions, cfg)
+    out = _sdpa_manual(q, k, v, ctx, causal=causal, window=cfg.window)
+    # sequence-sharded -> feature-sharded for the row-parallel wo
+    out = all_to_all_dim(out.reshape(b, s_loc, hq * hd), M, 2, 1, mesh)
+    return reduce_sum(dense(out, wo, cfg), M, mesh)
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 def mlp_init(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: Optional[int] = None,
@@ -384,7 +509,16 @@ def mlp_init(gen: Optional[torch.Generator], cfg: ModelConfig, d_ff: Optional[in
             "w_down": dense_init(gen, ff, d, cfg, dtype=dtype)}
 
 
-def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """The block's MLP; under a ctx with a model axis, the FooPar chain
+    (``_mlp_foopar``) whatever ``ctx.foopar_tp`` says: it is GSPMD's
+    partition of this layout too."""
+    if ctx is not None:
+        if _tp_axis(ctx) is not None:
+            return _mlp_foopar(p, x, cfg, ctx)
+        d, ff = cfg.d_model, p["w_down"].shape[0]
+        p = {n: _weight(w, ("mlp", n), (ff, d) if n == "w_down" else (d, ff), cfg, ctx,
+                        dtype=_dtype(cfg)) for n, w in p.items()}
     if "w_gate" in p:
         g = dense(x, p["w_gate"], cfg)
         u = dense(x, p["w_up"], cfg)
@@ -393,6 +527,29 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense(x, p["w_up"], cfg).float(), approximate="tanh").to(_dtype(cfg))
     return dense(h, p["w_down"], cfg)
+
+
+def _mlp_foopar(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """Paper-faithful TP MLP: the FooPar algebra's column-parallel mapD for
+    the up/gate projections (one mapD over both weights, so the input's
+    gradient is summed over ``model`` once) and zipWithD . reduceD("sum")
+    for the down projection (``core/tensor_ops.py``) -- the same math as
+    the single-device ``mlp``."""
+    dt, ax = _dtype(cfg), ctx.model_axis
+    d = cfg.d_model
+    ff = p["w_down"].shape[0] * ctx.model_size
+    w = {n: _weight(t, ("mlp", n), (ff, d) if n == "w_down" else (d, ff), cfg, ctx,
+                    model_dim=0 if n == "w_down" else 1, dtype=dt) for n, t in p.items()}
+    xx = x.to(dt)
+    if "w_gate" in w:
+        gu = foopar_matmul_col(xx, torch.cat([w["w_gate"], w["w_up"]], dim=1), axis=ax,
+                               preferred_element_type=dt)
+        g, u = gu.split(w["w_up"].shape[1], dim=-1)
+        h = F.silu(g.float()).to(dt) * u
+    else:
+        h = F.gelu(foopar_matmul_col(xx, w["w_up"], axis=ax, preferred_element_type=dt)
+                   .float(), approximate="tanh").to(dt)
+    return foopar_matmul_row(h, w["w_down"], axis=ax, preferred_element_type=dt)
 
 
 # ---------------------------------------------------------------------------
@@ -406,14 +563,59 @@ def embed_init(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
-def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    flat = p["embedding"].index_select(0, tokens.reshape(-1))
-    return flat.reshape(*tokens.shape, -1).to(_dtype(cfg))
+def _vocab_part(names, shape, dim: int, cfg: ModelConfig, ctx) -> Optional[str]:
+    part = leaf_spec(names, shape, cfg, ctx)[dim]
+    return part if part == _tp_axis(ctx) else None
 
 
-def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def vocab_axis(cfg: ModelConfig, ctx) -> Optional[str]:
+    """The axis the logits' vocabulary is split over under ``ctx`` (the
+    embedding's, or the unembedding's, ``model`` partition), or None."""
+    if ctx is None:
+        return None
+    if cfg.tie_embeddings:
+        return _vocab_part(("embed", "embedding"), (cfg.vocab, cfg.d_model), 0, cfg, ctx)
+    return _vocab_part(("embed", "unembed"), (cfg.d_model, cfg.vocab), 1, cfg, ctx)
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """Token lookup.  Under a ctx the embedding is split ``[model, fsdp]``:
+    the fsdp columns are gathered (in the parameters' dtype, so the
+    gradient accumulates as on one device), each rank looks up the tokens
+    inside its vocabulary rows (the rest masked to 0) and the rows are
+    summed over ``model`` -- one nonzero a row, so the sum is exact."""
+    w = p["embedding"]
+    vpart = None
+    if ctx is not None:
+        shape = (cfg.vocab, cfg.d_model)
+        w = _weight(w, ("embed", "embedding"), shape, cfg, ctx)
+        vpart = _vocab_part(("embed", "embedding"), shape, 0, cfg, ctx)
+    if vpart is None:
+        flat = w.index_select(0, tokens.reshape(-1))
+        return flat.reshape(*tokens.shape, -1).to(_dtype(cfg))
+    t = tokens.reshape(-1).long() - ctx.mesh.index(vpart) * w.shape[0]
+    inside = (t >= 0) & (t < w.shape[0])
+    rows = w.index_select(0, torch.where(inside, t, 0))
+    rows = torch.where(inside[:, None], rows, 0.0).to(_dtype(cfg))
+    return reduce_sum(rows.reshape(*tokens.shape, -1), vpart, ctx.mesh)
+
+
+def logits(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """f32 logits.  Under a ctx with the vocabulary split over ``model``
+    they stay split: the rank's (.., V / model) columns."""
     dt = _dtype(cfg)
-    w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
+    if ctx is not None:
+        vpart = vocab_axis(cfg, ctx)
+        if cfg.tie_embeddings:
+            w = _weight(p["embedding"], ("embed", "embedding"), (cfg.vocab, cfg.d_model),
+                        cfg, ctx, dtype=dt).t()
+        else:
+            w = _weight(p["unembed"], ("embed", "unembed"), (cfg.d_model, cfg.vocab),
+                        cfg, ctx, dtype=dt)
+        if vpart is not None:
+            x = copy_d(x, vpart, ctx.mesh)
+    else:
+        w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
     out = _matmul_f32(x.to(dt), w.to(dt))
     if cfg.logit_softcap:
         c = cfg.logit_softcap

@@ -15,11 +15,16 @@ is a list with one (K, V) pair per layer, updated in place: per-slot rows
   * ``init_paged_cache`` / ``prefill_paged`` / ``decode_step(block_tables=)``:
     the paged serving engine's model calls.
 
-MoE, SSM and xLSTM blocks are not ported yet (ROADMAP, port queue).
+Under a mesh ctx (``models.moe.MeshCtx``) ``forward`` runs inside one rank
+on its local parameter blocks and batch rows and returns its logits block
+(vocabulary-split over ``model`` under tensor parallelism); the layers
+issue the collectives (``models/layers.py``).  ``init(shard=)`` keeps each
+leaf's block as soon as its group is drawn, so a rank never holds the whole
+tree.  MoE, SSM and xLSTM blocks are not ported yet (ROADMAP, port queue).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -27,7 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, tree_map, tree_unflatten
 
 Params = dict
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -41,35 +46,47 @@ def _check_kinds(cfg: ModelConfig) -> None:
 
 
 def _block_apply(p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
-                 cache, cache_pos, block_tables):
+                 cache, cache_pos, block_tables, ctx=None):
     x1 = L.apply_norm(p["ln1"], h, cfg)
     attn_out, new_cache = L.attention(p["attn"], x1, positions, cfg, cache=cache,
-                                      cache_pos=cache_pos, block_tables=block_tables)
+                                      cache_pos=cache_pos, block_tables=block_tables,
+                                      ctx=ctx)
     if cfg.parallel_block:                 # command-r style: attn ∥ mlp
-        return h + attn_out + L.mlp(p["mlp"], x1, cfg), new_cache
+        return h + attn_out + L.mlp(p["mlp"], x1, cfg, ctx), new_cache
     h = h + attn_out
-    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg), new_cache
+    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg, ctx), new_cache
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator],
-         dtype: Optional[torch.dtype] = None) -> Params:
+         dtype: Optional[torch.dtype] = None,
+         shard: Optional[Callable[[tuple, torch.Tensor], torch.Tensor]] = None) -> Params:
     """Random parameters on ``generator``'s device, drawn as the JAX init
     draws them (normal, std 1/sqrt(d_in); embedding std 0.02; norm scales
     ones): every leaf in ``cfg.param_dtype`` (f32 master weights), as in
     JAX, unless ``dtype`` asks for the matrices in another dtype.  The
     numbers differ from the JAX init's; tests carry JAX parameters over
     with ``convert``.  ``generator=None`` builds the tree on the ``meta``
-    device (shapes and dtypes, no memory: JAX's ``eval_shape``)."""
+    device (shapes and dtypes, no memory: JAX's ``eval_shape``).
+    ``shard(path, leaf)`` replaces each leaf right after its group (the
+    embedding, one layer, the final norm) is drawn -- with a rank's block,
+    so the whole tree never exists at once; the draws are the same."""
     _check_kinds(cfg)
     dev = L._device(generator)
+
+    def keep(prefix, tree):
+        if shard is None:
+            return tree
+        return tree_unflatten(tree, [shard(prefix + path, leaf)
+                                     for path, leaf in leaves_with_path(tree)])
+
     return {
-        "embed": L.embed_init(generator, cfg, dtype),
-        "layers": [{"ln1": L.norm_init(cfg.d_model, cfg, dev),
-                    "attn": L.attention_init(generator, cfg, dtype),
-                    "ln2": L.norm_init(cfg.d_model, cfg, dev),
-                    "mlp": L.mlp_init(generator, cfg, dtype=dtype)}
-                   for _ in range(cfg.n_layers)],
-        "final_norm": L.norm_init(cfg.d_model, cfg, dev),
+        "embed": keep(("embed",), L.embed_init(generator, cfg, dtype)),
+        "layers": [keep(("layers", i), {"ln1": L.norm_init(cfg.d_model, cfg, dev),
+                                        "attn": L.attention_init(generator, cfg, dtype),
+                                        "ln2": L.norm_init(cfg.d_model, cfg, dev),
+                                        "mlp": L.mlp_init(generator, cfg, dtype=dtype)})
+                   for i in range(cfg.n_layers)],
+        "final_norm": keep(("final_norm",), L.norm_init(cfg.d_model, cfg, dev)),
     }
 
 
@@ -92,21 +109,29 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            remat: str = "none") -> torch.Tensor:
+            ctx=None, remat: str = "none") -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) f32, causal, no cache.
 
     ``remat`` says what the backward pass recomputes, as JAX's ``forward``
     does with ``jax.checkpoint`` per layer: ``"none"`` keeps every
     activation, ``"full"`` only each layer's input (``torch.utils.
     checkpoint``), ``"dots"`` each layer's input and its 2-D matmul outputs
-    (selective checkpointing).  The numbers are the same in every mode."""
+    (selective checkpointing).  The numbers are the same in every mode.
+
+    ``ctx``: this rank's batch rows and parameter blocks in, its logits
+    block out (B/dp, S, V/tp); a recompute issues its layer's collectives
+    again, in the same order on every rank."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
-    h = L.embed(params["embed"], tokens, cfg)
+    if ctx is not None and ctx.seq_parallel:
+        raise NotImplementedError("a sequence-parallel residual (ctx.seq_parallel) is not "
+                                  "ported (ROADMAP queue 1, item 8)")
+    h = L.embed(params["embed"], tokens, cfg, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def layer(h, p):
-        return _block_apply(p, h, positions, cfg, None, None, None)[0]
+        h = _block_apply(p, h, positions, cfg, None, None, None, ctx)[0]
+        return h if ctx is None else _constrain(h, ctx)
 
     for p in params["layers"]:
         if remat == "none":
@@ -118,7 +143,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                            context_fn=lambda: create_selective_checkpoint_contexts(
                                _save_matmuls))
     h = L.apply_norm(params["final_norm"], h, cfg)
-    return L.logits(params["embed"], h, cfg)
+    return L.logits(params["embed"], h, cfg, ctx)
+
+
+def _constrain(h: torch.Tensor, ctx) -> torch.Tensor:
+    """The residual's layout between layers: batch over the batch axes,
+    replicated over ``model`` -- what the layers give by construction, so
+    nothing moves.  The sequence-parallel residual (JAX's
+    ``seq_parallel``, which only the dry run's hill-climb sets) is not
+    ported: ``forward`` refuses it before any collective."""
+    return h
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",

@@ -10,8 +10,11 @@ the state (the parameters themselves are then stored in bf16).
 
 JAX's step donates its state buffers; here ``adamw_update`` writes its
 results into the state's own tensors, leaf by leaf, so a step holds one
-leaf's temporaries at a time and never a second copy of the parameters.  The ZeRO update (``adamw_update_zero``)
-waits for the port's sharding layer (ROADMAP queue 1, item 7).
+leaf's temporaries at a time and never a second copy of the parameters.
+
+``adamw_update_zero`` is the ZeRO update on a rank of a mesh: the same
+per-element arithmetic on the rank's scatter shard of each leaf, then an
+all-gather back to the parameters' layout.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.config import torch_dtype
+from repro_torch.core.dseq import all_gather_dim
+from repro_torch.core.mesh import P, ProcessMesh, local_block
 from repro_torch.tree import leaves, tree_map
 
 Tree = Any
@@ -43,8 +48,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
                                                          device=sq[0].device)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: torch.Tensor = None) -> Tuple[Tree, torch.Tensor]:
+    """``norm``: the global norm when ``grads`` are a rank's blocks of a
+    sharded tree (``global_norm`` of the blocks is not it)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -81,4 +89,42 @@ def adamw_update(grads: Tree, opt_state: Tree, params: Tree, *, lr, b1: float = 
         if mast is not None:
             mast.copy_(p_new)
     opt_state["step"].copy_(step)
+    return params, opt_state
+
+
+def scatter_part(scatter_spec: P, param_spec: P) -> P:
+    """What the scatter layout splits beyond the parameters' layout: the
+    entries of ``scatter_spec`` that differ from ``param_spec``, None
+    elsewhere (a spec relative to the parameters' local block)."""
+    n = max(len(scatter_spec), len(param_spec))
+    s = tuple(scatter_spec) + (None,) * (n - len(scatter_spec))
+    g = tuple(param_spec) + (None,) * (n - len(param_spec))
+    return P(*[a if a != b else None for a, b in zip(s, g)])
+
+
+def adamw_update_zero(grads: Tree, opt_state: Tree, params: Tree, *, scatter: Tree,
+                      gather: Tree, mesh: ProcessMesh, lr, b1: float = 0.9,
+                      b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
+                      decay: Tree = None) -> Tuple[Tree, Tree]:
+    """ZeRO sharded-update path (Rajbhandari et al. section 5), inside one
+    rank of ``mesh``.
+
+    ``scatter`` is the spec tree of the grad reduce-scatter layout
+    (``sharding.scatter_specs``), ``gather`` the parameters' (``param_specs``).
+    ``grads`` and the moments (and master copy) are this rank's blocks in
+    the scatter layout, ``params`` its blocks in the parameters' layout.
+    ``adamw_update`` runs verbatim on the rank's scatter shard of each
+    parameter block (a view, written in place), so the per-element
+    arithmetic, and the trajectory, are the all-reduce step's; then each
+    leaf's shards are all-gathered over the scatter axes into the whole
+    block for the next forward.  Every rank gathers every leaf in one
+    order."""
+    rel = tree_map(scatter_part, scatter, gather)
+    views = tree_map(lambda p, r: local_block(p, r, mesh), params, rel)
+    adamw_update(grads, opt_state, views, lr=lr, b1=b1, b2=b2, eps=eps,
+                 weight_decay=weight_decay, decay=decay)
+    for p, v, r in zip(leaves(params), leaves(views), leaves(rel)):
+        for d, part in enumerate(r):
+            if part is not None:
+                p.copy_(all_gather_dim(v, part, d, mesh))
     return params, opt_state

@@ -2,14 +2,22 @@
 
 The JAX package jits these (the train step donating its state, the serve
 steps their cache); here they run eagerly.  Training: ``cross_entropy``,
-``make_loss_fn``, ``make_train_step`` (the single-device all-reduce step,
-which writes the new state into the old state's tensors, as JAX's donated
-buffers are reused), ``init_train_state`` and
-``abstract_train_state`` (on the ``meta`` device).  The ZeRO step
-(``make_train_step_zero``) waits for the port's sharding layer (ROADMAP
-queue 1, item 7).  Serving: the fused prefill and end-aligned decode step,
-the paged decode step and the chunked-prefill step, which write the cache
-in place (the returned cache is the same list).
+``make_loss_fn``, ``make_train_step`` (the all-reduce step, which writes
+the new state into the old state's tensors, as JAX's donated buffers are
+reused), ``make_train_step_zero`` (the ZeRO step), ``init_train_state``,
+``abstract_train_state`` (on the ``meta`` device) and
+``train_state_shardings``.  Serving: the fused prefill and end-aligned
+decode step, the paged decode step and the chunked-prefill step, which
+write the cache in place (the returned cache is the same list).
+
+Under a mesh ctx a step runs inside one rank (``core.mesh.launch``) on its
+blocks of the state (``train_state_shardings``) and its batch rows.  Where
+GSPMD reduces the gradients of the reference's step, the port does: each
+leaf's gradient is summed over the batch axes its spec does not already
+split (an FSDP leaf's was reduce-scattered by its gather's transpose), by
+an all-reduce, or, in the ZeRO step, by a reduce-scatter onto the leaf's
+``scatter_specs`` layout.  The loss is a vocab-parallel cross-entropy when
+the logits are split over ``model``.
 """
 from __future__ import annotations
 
@@ -20,8 +28,14 @@ import torch
 
 from repro_torch import optim
 from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig, torch_dtype
+from repro_torch.core.dseq import reduce_sum
+from repro_torch.core.mesh import local_block
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import leaves, tree_map, tree_unflatten
+from repro_torch.models.moe import MeshCtx
+from repro_torch.optim.adamw import scatter_part
+from repro_torch.parallel.sharding import opt_specs, param_specs, scatter_specs
+from repro_torch.tree import leaves, leaves_with_path, tree_map, tree_unflatten
 
 Tree = Any
 
@@ -46,13 +60,42 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     ``z_loss * lse**2`` a token (unchunked form only, as in JAX).  ``chunk``
     sums the loss over sequence chunks of that length, the last padded with
     ignored labels."""
+    return _cross_entropy_sum(logits, labels, z_loss=z_loss, chunk=chunk, axis=None,
+                              mesh=None) / labels.numel()
+
+
+def _lse_and_picked_split(lg: torch.Tensor, lb: torch.Tensor, axis, mesh):
+    """``_lse_and_picked`` over logits whose vocabulary is split over
+    ``axis`` (this rank holds the columns ``[i * V_loc, (i + 1) * V_loc)``):
+    the row max, the sum of exponentials and the picked logit are each
+    ``reduceD``'d over the axis.  The max is a constant shift (its gradient
+    terms cancel exactly), so it carries none."""
+    lg = lg.float()
+    m = mesh.all_reduce(torch.amax(lg, dim=-1, keepdim=True).detach(), "max", axis)
+    lse = torch.log(reduce_sum(torch.sum(torch.exp(lg - m), dim=-1), axis, mesh)) + m[..., 0]
+    n = lg.shape[-1]
+    t = lb.long() - mesh.index(axis) * n
+    inside = (t >= 0) & (t < n)
+    picked = torch.gather(lg, -1, torch.where(inside, t, 0)[..., None])[..., 0]
+    return lse, reduce_sum(torch.where(inside, picked, 0.0), axis, mesh)
+
+
+def _cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float,
+                       chunk: Optional[int], axis, mesh) -> torch.Tensor:
+    """``cross_entropy``'s token sum (not the mean) over this rank's rows,
+    the vocabulary split over ``axis`` (or whole, with ``axis`` None)."""
+    def lse_picked(lg, lb):
+        if axis is None:
+            return _lse_and_picked(lg, lb)
+        return _lse_and_picked_split(lg, lb, axis, mesh)
+
     if chunk is None:
-        lse, picked = _lse_and_picked(logits, labels)
+        lse, picked = lse_picked(logits, labels)
         loss = lse - picked
         if z_loss:
             loss = loss + z_loss * lse ** 2
-        return torch.sum(loss) / loss.numel()
-    b, s = labels.shape
+        return torch.sum(loss)
+    s = labels.shape[1]
     pad = (-s) % chunk
     if pad:
         logits = torch.nn.functional.pad(logits, (0, 0, 0, pad))
@@ -60,28 +103,40 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     total = torch.zeros((), dtype=torch.float32, device=logits.device)
     for lo in range(0, s + pad, chunk):
         lbc = labels[:, lo:lo + chunk]
-        lse, picked = _lse_and_picked(logits[:, lo:lo + chunk], lbc)
+        lse, picked = lse_picked(logits[:, lo:lo + chunk], lbc)
         total = total + torch.sum((lse - picked) * (lbc >= 0).float())
-    return total / (b * s)
+    return total
 
 
 def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
-                 ctx=None) -> Callable:
+                 ctx: Optional[MeshCtx] = None) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"loss", "aux"})``: next-token CE
     over ``batch["tokens"]`` plus ``1e-2 * aux``.  The dense families have
-    no auxiliary loss: ``aux`` is an f32 0, reported as JAX reports it."""
-    if ctx is not None:
-        raise NotImplementedError("a mesh ctx needs the port's sharding layer "
-                                  "(ROADMAP queue 1, item 7)")
+    no auxiliary loss: ``aux`` is an f32 0, reported as JAX reports it.
+
+    Under a ctx: this rank's rows and blocks; the CE is vocab-parallel
+    when the logits are split over ``model`` (the reference constrains them
+    to ``P(batch, None, 'model')``), each rank's token sum is divided by the
+    global token count and ``reduceD("sum")``'d over the batch axes, so
+    every rank holds the global token mean, as in JAX."""
     if cfg.enc_dec:
         raise NotImplementedError("enc-dec training is not ported (ROADMAP queue 1, item 6)")
+    vaxis = L.vocab_axis(cfg, ctx)
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
-        logits = T.forward(params, tokens, cfg, remat=pcfg.remat)
+        logits = T.forward(params, tokens, cfg, ctx=ctx, remat=pcfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-        loss = cross_entropy(logits[:, :-1], tokens[:, 1:], z_loss=tcfg.z_loss,
-                             chunk=pcfg.logit_chunk)
+        if ctx is None:
+            loss = cross_entropy(logits[:, :-1], tokens[:, 1:], z_loss=tcfg.z_loss,
+                                 chunk=pcfg.logit_chunk)
+        else:
+            mesh = ctx.mesh
+            b, s = tokens.shape
+            total = _cross_entropy_sum(logits[:, :-1], tokens[:, 1:], z_loss=tcfg.z_loss,
+                                       chunk=pcfg.logit_chunk, axis=vaxis, mesh=mesh)
+            n = b * mesh.size(ctx.batch_axes) * (s - 1)
+            loss = reduce_sum(total / n, ctx.batch_axes, mesh)
         loss = loss + 1e-2 * aux
         return loss, {"loss": loss, "aux": aux}
     return loss_fn
@@ -96,15 +151,17 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
     step on one device: loss and grads (f32 for f32 parameters), grads cast
     to ``pcfg.grad_dtype``, clipped by global norm, then the warmup-cosine
     rate and AdamW (weight decay on the leaves JAX decays,
-    ``transformer.decay_mask``).  ``grad_reduce="reduce_scatter_zero"`` without a ctx
-    warns and takes this step, as JAX's does."""
+    ``transformer.decay_mask``).  ``grad_reduce="reduce_scatter_zero"``
+    dispatches to ``make_train_step_zero`` under a ctx; without one it warns
+    and takes this step, as JAX's does.  Under a ctx: ``_make_mesh_step``."""
     if pcfg.grad_reduce == "reduce_scatter_zero":
         if ctx is not None:
-            raise NotImplementedError("make_train_step_zero waits for the port's "
-                                      "sharding layer (ROADMAP queue 1, item 7)")
+            return make_train_step_zero(cfg, pcfg, tcfg, ctx)
         warnings.warn("grad_reduce='reduce_scatter_zero' needs a mesh ctx; "
                       "falling back to the single-device all-reduce step",
                       stacklevel=2)
+    if ctx is not None:
+        return _make_mesh_step(cfg, pcfg, tcfg, ctx, zero=False)
     loss_fn = make_loss_fn(cfg, pcfg, tcfg, ctx)
     grad_dt = torch_dtype(pcfg.grad_dtype)
 
@@ -135,15 +192,142 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
     return train_step
 
 
+def make_train_step_zero(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
+                         ctx: MeshCtx) -> Callable:
+    """ZeRO train step: grads reduce-scattered over the fsdp (else the
+    batch) axes onto ``scatter_specs``, AdamW updating only the rank's
+    shard (moments and master copy stored so), params all-gathered for the
+    next forward (``optim.adamw_update_zero``).  Loss, grads and clip are
+    the all-reduce step's, so the trajectories coincide; only the
+    optimizer segment's layout, and its communication, differ."""
+    if ctx is None:
+        raise ValueError("make_train_step_zero needs a mesh ctx to scatter "
+                         "over; use make_train_step on a single device")
+    return _make_mesh_step(cfg, pcfg, tcfg, ctx, zero=True)
+
+
+def _axes_of(spec) -> tuple:
+    """The mesh axes a spec names, in its order."""
+    out = []
+    for part in spec:
+        out += [] if part is None else list(part if isinstance(part, tuple) else (part,))
+    return tuple(out)
+
+
+def _reduce_grad(g: torch.Tensor, pspec, sspec, ctx: MeshCtx) -> torch.Tensor:
+    """Sum one leaf's gradient block over the batch axes its parameter spec
+    does not split: a reduce-scatter onto ``sspec`` along the dim the
+    scatter layout adds, an all-reduce over the rest."""
+    mesh = ctx.mesh
+    done = set(_axes_of(pspec))
+    for d, part in enumerate(scatter_part(sspec, pspec)):
+        if part is not None:
+            g = mesh.reduce_scatter_sum(g.movedim(d, 0), part).movedim(0, d)
+            done.update(_axes_of((part,)))
+    rest = tuple(a for a in mesh.axis_names if a in ctx.batch_axes and a not in done)
+    return mesh.all_reduce(g, "sum", rest) if rest else g
+
+
+def _sharded_norm(grads: list, specs: list, mesh) -> torch.Tensor:
+    """The global norm of a tree whose leaves are this rank's blocks under
+    ``specs``: each leaf's squared sum is summed over the axes that split
+    it (one all-reduce per distinct set of axes), then added up in leaf
+    order, as ``optim.global_norm`` does."""
+    sq = [torch.sum(g.float() ** 2) for g in grads]
+    groups = {}
+    for i, spec in enumerate(specs):
+        axes = tuple(a for a in mesh.axis_names if a in _axes_of(spec))
+        groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        if axes:
+            summed = mesh.all_reduce(torch.stack([sq[i] for i in idx]), "sum", axes)
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
+    total = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+    for v in sq:
+        total = total + v
+    return torch.sqrt(total)
+
+
+def _make_mesh_step(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
+                    ctx: MeshCtx, *, zero: bool) -> Callable:
+    """The train step inside one rank of ``ctx.mesh``: loss and grads on the
+    rank's blocks, each gradient summed over the batch axes
+    (``_reduce_grad``) and cast to ``pcfg.grad_dtype``, clipped by the
+    global norm, then
+    AdamW on the parameters' layout, or, with ``zero``, on the scatter
+    layout (``adamw_update_zero``).  Every rank issues the same collectives
+    in the same order: the forward's, the backward's (a leaf with no use
+    gets a zero gradient and is reduced like the others), the reduction's
+    and the update's."""
+    mesh = ctx.mesh
+    meta = T.init(cfg, None)
+    pspec_tree = param_specs(meta, cfg, ctx)
+    sspec_tree = scatter_specs(meta, cfg, ctx) if zero else pspec_tree
+    pspecs, sspecs = leaves(pspec_tree), leaves(sspec_tree)
+    loss_fn = make_loss_fn(cfg, pcfg, tcfg, ctx)
+    grad_dt = torch_dtype(pcfg.grad_dtype)
+
+    def train_step(state: Tree, batch: Tree) -> Tuple[Tree, dict]:
+        params = state["params"]
+        with mesh:
+            live = [p.detach().requires_grad_(True) for p in leaves(params)]
+            with torch.enable_grad():
+                loss, metrics = loss_fn(tree_unflatten(params, live), batch)
+                grads = list(torch.autograd.grad(loss, live, allow_unused=True,
+                                                 materialize_grads=True))
+            del live
+            for i, (ps, ss) in enumerate(zip(pspecs, sspecs)):
+                # summed in autograd's dtype, then cast, as the reference's
+                # gradients are reduced inside its backward pass
+                grads[i] = _reduce_grad(grads[i], ps, ss, ctx).to(grad_dt)
+            norm = _sharded_norm(grads, sspecs, mesh)
+            grads, gnorm = optim.clip_by_global_norm(tree_unflatten(params, grads),
+                                                     tcfg.grad_clip, norm=norm)
+            lr = optim.warmup_cosine(state["opt"]["step"], lr=tcfg.lr,
+                                     warmup_steps=tcfg.warmup_steps,
+                                     total_steps=tcfg.total_steps)
+            kw = dict(lr=lr, b1=tcfg.b1, b2=tcfg.b2, weight_decay=tcfg.weight_decay,
+                      decay=T.decay_mask(params))
+            if zero:
+                params, opt_state = optim.adamw_update_zero(
+                    grads, state["opt"], params, scatter=sspec_tree, gather=pspec_tree,
+                    mesh=mesh, **kw)
+            else:
+                params, opt_state = optim.adamw_update(grads, state["opt"], params, **kw)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(grad_norm=gnorm, lr=lr)
+        return {"params": params, "opt": opt_state}, metrics
+
+    return train_step
+
+
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
-                     pcfg: ParallelConfig) -> Tree:
+                     pcfg: ParallelConfig, ctx: Optional[MeshCtx] = None) -> Tree:
     """``{"params", "opt"}`` on ``generator``'s device (``None``: the
     ``meta`` device).  With ``pcfg.master_weights`` the parameters are
-    stored in bf16 and the optimizer keeps their f32 master copy."""
+    stored in bf16 and the optimizer keeps their f32 master copy.
+
+    Under a ctx: this rank's blocks of the same state, laid out by
+    ``train_state_shardings``.  The parameters are drawn group by group in
+    the single-rank order, and each leaf is cut to its block as soon as it
+    is drawn, so a rank never holds the whole tree; assembled, the blocks
+    are the single-rank state, leaf for leaf."""
     if cfg.enc_dec:
         raise NotImplementedError("enc-dec training is not ported (ROADMAP queue 1, item 6)")
-    params = T.init(cfg, generator)
-    opt = optim.adamw_init(params, pcfg.opt_state_dtype, master=pcfg.master_weights)
+    if ctx is None:
+        params = T.init(cfg, generator)
+        opt_params = params
+    else:
+        specs = train_state_shardings(cfg, pcfg, ctx, abstract_train_state(cfg, pcfg))
+        by_path = dict(leaves_with_path(specs["params"]))
+        params = T.init(cfg, generator, shard=lambda path, leaf: local_block(
+            leaf, by_path[path], ctx.mesh).clone())
+        # the moments (and master copy) live in their own layout: the rank's
+        # part of its parameter block (all of it but under ZeRO)
+        opt_params = tree_map(lambda p, ps, ms: local_block(p, scatter_part(ms, ps), ctx.mesh),
+                              params, specs["params"], specs["opt"]["m"])
+    opt = optim.adamw_init(opt_params, pcfg.opt_state_dtype, master=pcfg.master_weights)
     if pcfg.master_weights:
         params = tree_map(lambda p: p.to(torch.bfloat16), params)
     return {"params": params, "opt": opt}
@@ -153,6 +337,23 @@ def abstract_train_state(cfg: ModelConfig, pcfg: ParallelConfig) -> Tree:
     """The train state's structure, shapes and dtypes on the ``meta``
     device (no memory): the ``like`` tree of ``restore_checkpoint``."""
     return init_train_state(None, cfg, pcfg)
+
+
+def train_state_shardings(cfg: ModelConfig, pcfg: ParallelConfig, ctx: MeshCtx,
+                          state: Tree) -> Tree:
+    """The spec tree of a train state (global ``state``, e.g.
+    ``abstract_train_state``): the parameters' ``param_specs``; m, v and
+    the master copy in ``scatter_specs`` under ZeRO, else the parameters';
+    the step replicated.  A spec is the placement (JAX returns
+    ``NamedSharding``s)."""
+    pspec = param_specs(state["params"], cfg, ctx)
+    sspec = scatter_specs(state["params"], cfg, ctx) \
+        if pcfg.grad_reduce == "reduce_scatter_zero" else None
+    ospec = opt_specs(pspec, sspec)
+    if "master" in state["opt"]:
+        ospec["master"] = sspec if sspec is not None else pspec
+    return {"params": pspec, "opt": ospec}
+
 
 
 # ---------------------------------------------------------------------------

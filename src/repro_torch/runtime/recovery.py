@@ -18,8 +18,15 @@
 
 * **Elastic scaling**: ``ElasticPlan`` recomputes the (data, model) shape
   for a new device count.  Checkpoints hold whole logical arrays, so a
-  resize needs no format change.  The port has no device mesh object; the
-  plan is a plain description (``MeshPlan``).
+  resize needs no format change.  The plan is a plain description
+  (``MeshPlan``); ``launch.mesh.make_local_mesh`` builds the mesh.
+
+* **On the ranks of a mesh** every rank runs the same loop: the
+  checkpointer is a ``ShardedCheckpointer`` (one writer; its ``wait`` is a
+  fence, so every rank restores the same step), a straggler verdict is
+  agreed across the ranks (``agree``) before anyone acts on it, and an
+  error of the process group itself (a collective's timeout, a lost rank)
+  is never recovered from: it ends the run, and the launch fails.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 
@@ -86,13 +94,18 @@ class TrainingRunner:
     checkpoint_every: int = 100
     max_restarts: int = 3
     watchdog: StepWatchdog = field(default_factory=StepWatchdog)
+    # ranks of a mesh: the checkpointer (default: AsyncCheckpointer of
+    # ``directory``) and the ranks' common verdict on a local flag
+    checkpointer: Optional[Callable[[], object]] = None
+    agree: Callable[[bool], bool] = bool
 
     def run(self, total_steps: int, *, inject_fault_at: Optional[int] = None):
         """Returns (final_state, metrics_history).  ``inject_fault_at`` is the
         test hook proving recovery."""
         restarts = 0
         history = []
-        saver = ckpt.AsyncCheckpointer(self.directory)
+        saver = self.checkpointer() if self.checkpointer else \
+            ckpt.AsyncCheckpointer(self.directory)
         while True:
             start = ckpt.latest_step(self.directory) or 0
             state, step_fn, batches = self.build(start)
@@ -110,14 +123,16 @@ class TrainingRunner:
                     # float() waits for the device (JAX: block_until_ready)
                     row = {k: float(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
-                    straggler = self.watchdog.observe(dt)
+                    straggler = self.agree(self.watchdog.observe(dt))
                     history.append({"step": step, "time_s": dt, **row})
                     step += 1
                     if step % self.checkpoint_every == 0:
                         saver.save(step, state)
                     if straggler:
                         raise RuntimeError(f"straggler step {step - 1}: {dt:.3f}s")
-            except RuntimeError:   # torch.cuda.CudaError and OutOfMemoryError are ones
+            except RuntimeError as e:   # torch.cuda.CudaError and OutOfMemoryError are ones
+                if isinstance(e, dist.DistError):
+                    raise                # the group is broken: no rank goes on
                 restarts += 1
                 if restarts > self.max_restarts:
                     raise

@@ -1,7 +1,7 @@
 """Nested containers of tensors (the port's pytrees).
 
-A tree is a dict, list or tuple whose leaves are tensors, arrays or
-numbers.  Leaves are visited in the JAX package's pytree order: dict keys
+A tree is a dict, list or tuple whose leaves are tensors, arrays, numbers
+or partition specs.  Leaves are visited in the JAX package's pytree order: dict keys
 sorted, sequences by index.  That order fixes the checkpoint's leaf names
 (``checkpoint/store.py``) and the summation order of ``optim.global_norm``.
 """
@@ -13,15 +13,17 @@ Tree = Any
 
 
 def _children(tree) -> List[Tuple[Any, Any]]:
+    if is_leaf(tree):
+        return []
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
-        return list(enumerate(tree))
-    return []
+    return list(enumerate(tree))
 
 
 def is_leaf(tree) -> bool:
-    return not isinstance(tree, (dict, list, tuple))
+    """Containers are plain dicts, lists and tuples; a subclass of one (a
+    partition spec ``core.mesh.P``) is a leaf."""
+    return type(tree) not in (dict, list, tuple)
 
 
 def leaves_with_path(tree: Tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:

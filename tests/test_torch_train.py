@@ -399,10 +399,26 @@ def test_train_launcher_with_fault_injection(tmp_path):
 
 
 def test_launcher_refuses_what_it_cannot_do(tmp_path):
+    """What a mesh ctx still refuses: a cache (the serve engine on a mesh)
+    and the sequence-parallel residual, each before any collective; a
+    model axis that does not divide the ranks; and the CPU unless asked."""
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import make_ctx
+    _, cfg = _cfgs(n_layers=1)
+    params = T.init(cfg, torch.Generator().manual_seed(0))
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    x = torch.zeros(1, 4, cfg.d_model)
+    cache = T.init_cache(cfg, 1, 8, device="cpu")[0]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        L.attention(params["layers"][0]["attn"], x, torch.arange(4), cfg, cache=cache,
+                    cache_pos=0, ctx=ctx)
+    sp = make_ctx(mesh, ParallelConfig(fsdp_params=False, sequence_parallel=True))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=sp)
     base = ["--device", "cpu", "--steps", "2", "--ckpt-dir", str(tmp_path / "ck")]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launcher.main(base + ["--plan", "auto"])
-    with pytest.raises(NotImplementedError, match="items 2 and 7"):
+    with pytest.raises(ValueError, match="must divide"):
         launcher.main(base + ["--model-parallel", "2"])
     if torch.cuda.is_available():
         return
