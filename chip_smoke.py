@@ -132,6 +132,47 @@ Each prints its step walls and tokens/s, every rank's peak memory and the
 bytes each rank staged a step, and the planner's predicted step time on
 the H100 constants' NVLink and on the staging link fitted in phase 7.
 
+Then the other model families, each model's memory freed before the next
+(bf16 matrices from a seeded generator on the card; each serve phase zeroes
+the kernels' launch counts just before its run and reads them just after):
+
+  serve moe aligned -- Mixtral-8x22B at its published width (d 6144, 48/8
+                 heads, hd 128, 8 experts top-2, d_ff 16384, window 4096),
+                 depth cut from 56 to 4 layers (20.8 GB; the whole model is
+                 282 GB), through ``Scheduler(paged=False)`` on the llama
+                 phases' mix: tensor-core flash launches = non-empty
+                 admissions x 4; then one served request teacher-forced
+                 through a fused prefill and end-aligned decode steps
+                 against ``forward``, both in f32 arithmetic on the served
+                 bf16 weights (f32 cache), with the (token, layer) top-2
+                 sets that differ between the two counted;
+  serve moe paged -- Kimi-K2 at its published width (d 7168, 64/8 heads,
+                 384 experts top-8 and a shared expert, expert d_ff 2048),
+                 depth cut from 61 to 1 (39 GB), the paged-attention kernel
+                 checked at its decode shape (rep 8), then 4 requests of 256
+                 + 32 tokens through ``Scheduler(paged=True)`` (4 slots,
+                 block 16, chunk 256): paged launches = decode steps; the
+                 f32 oracle through chunked prefill and paged decode;
+  serve hybrid, serve xlstm -- Zamba2-1.2B and xLSTM-1.3B at full width
+                 and depth, 4 requests of 128 + 32 tokens on 2 slots through
+                 the per-token recurrent prefill; the f32 oracle through
+                 B=1 decode steps;
+  serve encdec -- Whisper-base at full size: the flash kernel checked at
+                 the encoder's shape (non-causal, L 1500, hd 64), then stub
+                 frames (1, 1500, 512) through ``make_prefill_step`` and 32
+                 greedy ``make_decode_step``s: flash launches = the
+                 encoder's 6 + the decoder prefill's 6; logits against
+                 ``encdec.forward`` (bf16, the served arithmetic);
+  train families -- each family's reduced config in f32: loss and every
+                 gradient leaf on the card against the CPU, then one train
+                 step and the parameters after it (1e-5 / 1e-4);
+  moe ranks  -- Mixtral-8x22B's MoE FFN at full width (one layer, bf16,
+                 4 x 256 tokens) on 8 gloo ranks sharing the card, mesh (2,
+                 4): the EP and a2a layouts, and the TP layout at 3
+                 experts, each against the one-process layer (rtol 2e-2,
+                 atol 2e-3), with each rank's wall, bytes staged and peak
+                 memory.
+
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
 """
@@ -1930,6 +1971,530 @@ def layouts_body(link) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the other model families: served at their published widths, trained at
+# reduced size, and the MoE layer's mesh layouts on gloo ranks
+MOE_ALIGNED_ARCH, MOE_ALIGNED_DEPTH = "mixtral-8x22b", 4    # 56 layers would be 282 GB
+MOE_PAGED_ARCH, MOE_PAGED_DEPTH = "kimi-k2-1t-a32b", 1      # 61 layers would be 2.1 TB
+KIMI_REQ, KIMI_PROMPT, KIMI_GEN = 4, 256, 32
+RECURRENT_ARCHS = {"zamba2-1.2b": "hybrid", "xlstm-1.3b": "xlstm"}   # full depth
+REC_REQ, REC_PROMPT, REC_GEN, REC_SLOTS = 4, 128, 32, 2
+WHISPER_PROMPT, WHISPER_GEN, WHISPER_FRAMES = 4, 32, 1500
+FAMILY_ARCHS = ("mixtral-8x22b", "kimi-k2-1t-a32b", "zamba2-1.2b", "xlstm-1.3b",
+                "whisper-base")
+# the families' decode paths against ``forward`` in f32 arithmetic on the
+# served bf16 weights (every product widened): the router then decides on
+# f32 logits in both paths, as arithmetic should decide it; the paths differ
+# in summation order only
+ORACLE_F32_REL_RMS = 1e-3
+MOE_RANKS, MOE_MESH_MODEL, MOE_TOKENS = 8, 4, (4, 256)        # mesh (2, 4), B x S
+MOE_RANK_TOL = dict(rtol=2e-2, atol=2e-3)                    # tests/progs/moe_ep_prog.py
+
+
+def _family_init(cfg, full_layers: int):
+    """bf16 matrices from a seeded generator on the card, as the serve CLI
+    draws them (f32 draws rounded once; the f32 leaves stay f32)."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = (E.init if cfg.enc_dec else T.init)(cfg, gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ls = leaves(params)
+    print(f"[init] {cfg.name}: {cfg.n_layers} of {full_layers} layers, "
+          f"{sum(t.numel() for t in ls) / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in ls) / 1e9:.2f} GB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def _family_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    return {"flash_wgmma": fa.launches_wgmma, "flash_simt": fa.launches,
+            "paged": pa.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    fa.launches = fa.launches_wgmma = pa.launches = 0
+
+
+def _serve_family(tag: str, cfg, params, reqs, warm_prompt: int, **kw):
+    """A warmup run, then ``reqs`` through the scheduler with the kernels'
+    counts set to 0 just before and read just after.  Returns (the run's
+    output, the launch counts)."""
+    from repro_torch.launch.scheduler import Scheduler, make_requests
+    sched = Scheduler(cfg, params, **kw)
+    sched.run(make_requests(2, warm_prompt, 2, cfg.vocab))
+    sched.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = sched.run(reqs)
+    counts = _family_counts()
+    comps = out["completions"]
+    gen = reqs[0].gen
+    if sorted(comps) != [r.rid for r in reqs] or any(
+            len(c.tokens) != gen or not all(0 <= t < cfg.vocab for t in c.tokens)
+            for c in comps.values()):
+        fail(f"{tag}: served {sorted(comps)}; every request needs {gen} tokens in the vocab")
+    ttft = sorted(c.ttft_s for c in comps.values())
+    print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers, {len(reqs)} req x "
+          f"({len(reqs[0].prompt)} prompt + {gen} gen), {kw}: {out['generated']} tokens in "
+          f"{out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
+          f"decode steps, {out['prefills']} prefills; launches {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return out, counts
+
+
+def _route_flips(fwd: list, path: list, n_layers: int) -> int:
+    """(token, layer) pairs whose top-k sets differ between ``forward``'s
+    routing and the decode path's (``moe.routes`` of each: one (T, k) entry
+    a layer and a call, layer-major within a call)."""
+    flips = 0
+    for layer in range(n_layers):
+        a = torch.sort(fwd[layer], dim=-1).values
+        b = torch.sort(torch.cat(path[layer::n_layers]), dim=-1).values
+        if a.shape != b.shape:
+            fail(f"routing probe: forward routed {tuple(a.shape)}, the decode path "
+                 f"{tuple(b.shape)} in layer {layer}")
+        flips += int((a != b).any(dim=-1).sum())
+    return flips
+
+
+def _oracle_f32(tag: str, cfg, params, prompt, comp, run_path) -> None:
+    """One served request teacher-forced through the served path
+    (``run_path(cfg32, seq)`` -> logits (GEN, V) from the last prompt
+    token on) and through ``forward``, both in f32 arithmetic on the served
+    bf16 weights; every step's logits held to ORACLE_F32_REL_RMS, and the
+    routing flips between the two counted (MoE)."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg32 = cfg.replace(dtype="float32")
+    lp = len(prompt)
+    toks = np.concatenate([np.asarray(prompt), np.asarray(comp.tokens[:-1], np.int32)])
+    seq = torch.from_numpy(toks.astype(np.int64)).cuda()[None]
+    M.routes = [] if cfg.moe else None
+    try:
+        with torch.no_grad():
+            ref = T.forward(params, seq, cfg32)[0, lp - 1:]
+        fwd_routes, M.routes = M.routes, ([] if cfg.moe else None)
+        got = run_path(cfg32, seq)
+        path_routes = M.routes
+    finally:
+        M.routes = None
+    if not torch.isfinite(got).all():
+        fail(f"{tag}: decode-path logits are not finite")
+    diff = got - ref
+    rel = (diff.norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    flips = _route_flips(fwd_routes, path_routes, cfg.n_layers) if cfg.moe else 0
+    print(f"[{tag}] request {comp.rid}: the served path vs forward over {len(toks)} tokens "
+          f"in f32 arithmetic on the bf16 weights: max per-row relative RMS {rel:.3e} (bound "
+          f"{ORACLE_F32_REL_RMS:g}), max |diff| {diff.abs().max().item():.3e} of max |logit| "
+          f"{ref.abs().max().item():.3e}, argmax agreement {agree:.3f}"
+          + (f"; (token, layer) top-{cfg.moe.top_k} sets that differ: {flips} of "
+             f"{len(toks) * cfg.n_layers}" if cfg.moe else ""), flush=True)
+    if rel > ORACLE_F32_REL_RMS:
+        fail(f"{tag}: decode-path logits differ from forward: relative RMS {rel:.3e}")
+
+
+def _aligned_path(params, prompt_len: int, gen: int):
+    """Fused prefill of the prompt and end-aligned decode steps, f32 cache."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+
+    def run(cfg32, seq):
+        cache = T.init_cache(cfg32, 1, prompt_len + gen, device="cuda", dtype=torch.float32)
+        prefill, decode = S.make_prefill_step(cfg32), S.make_decode_step(cfg32,
+                                                                          return_logits=True)
+        logits, cache = prefill(params, {"tokens": seq[:, :prompt_len].to(torch.int32),
+                                         "length": torch.tensor([prompt_len], device="cuda")},
+                                cache)
+        got = [logits[0]]
+        for i in range(gen - 1):
+            pos = prompt_len + i
+            logits, cache = decode(params, seq[0, pos:pos + 1].to(torch.int32), cache,
+                                   torch.tensor([pos], dtype=torch.int32, device="cuda"))
+            got.append(logits[0])
+        return torch.stack(got)
+    return run
+
+
+def _paged_path(params, prompt_len: int, gen: int):
+    """Chunked prefill and paged decode steps over f32 arenas."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+    from repro_torch.serving import BlockPool
+
+    def run(cfg32, seq):
+        n_pages = -(-(prompt_len + gen) // BLOCK)
+        pool = BlockPool(n_pages, BLOCK)
+        pool.admit(0, prompt_len + gen)
+        cache = T.init_paged_cache(cfg32, n_pages, BLOCK, device="cuda", dtype=torch.float32)
+        prefill = S.make_chunk_prefill_step(cfg32)
+        decode = S.make_decode_step(cfg32, return_logits=True, paged=True)
+        for lo in range(0, prompt_len, CHUNK):
+            ln = min(CHUNK, prompt_len - lo)
+            pool.ensure(0, lo + ln)
+            chunk = torch.zeros((1, CHUNK), dtype=torch.int32, device="cuda")
+            chunk[0, :ln] = seq[0, lo:lo + ln]
+            table = torch.from_numpy(pool.table(0, n_pages)[None]).cuda()
+            logits, cache = prefill(params, chunk, cache, lo, table, ln)
+        got = [logits[0]]
+        for i in range(gen - 1):
+            pos = prompt_len + i
+            pool.ensure(0, pos + 1)
+            table = torch.from_numpy(pool.table(0, n_pages)[None]).cuda()
+            logits, cache = decode(params, seq[0, pos:pos + 1].to(torch.int32), cache,
+                                   torch.tensor([pos], dtype=torch.int32, device="cuda"), table)
+            got.append(logits[0])
+        return torch.stack(got)
+    return run
+
+
+def _recurrent_path(params, prompt_len: int, gen: int):
+    """The scheduler's fallback: every token through a B=1 decode step, f32
+    state and cache."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+
+    def run(cfg32, seq):
+        cache = T.init_cache(cfg32, 1, prompt_len + gen, device="cuda", dtype=torch.float32)
+        decode = S.make_decode_step(cfg32, return_logits=True)
+        got = []
+        for pos in range(prompt_len + gen - 1):
+            logits, cache = decode(params, seq[0, pos:pos + 1].to(torch.int32), cache, pos)
+            if pos >= prompt_len - 1:
+                got.append(logits[0])
+        return torch.stack(got)
+    return run
+
+
+def _check_kernel(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> None:
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"[{tag}] max |kernel - plain| {err:.3e} (bound {tol:g})", flush=True)
+    if not err <= tol:
+        fail(f"{tag}: the kernel differs from its plain version by {err:.3e}")
+
+
+def phase_serve_moe_aligned() -> int:
+    """Mixtral-8x22B (depth 4) end-aligned: every non-empty admission one
+    fused prefill through the tensor-core flash kernel in each layer (48/8
+    heads, hd 128, window 4096), the llama phases' request mix."""
+    from repro_torch import configs
+    from repro_torch.launch.scheduler import make_requests
+    full = configs.get(MOE_ALIGNED_ARCH)
+    cfg = full.replace(n_layers=MOE_ALIGNED_DEPTH)
+    params = _family_init(cfg, full.n_layers)
+    reqs = make_requests(N_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
+    out, counts = _serve_family("serve moe aligned", cfg, params, reqs, 16, slots=SLOTS,
+                                max_len=PROMPT + GEN, bucket=BUCKET)
+    admissions = sum(1 for r in reqs if len(r.prompt) > 0)
+    want = {"flash_wgmma": admissions * cfg.n_layers, "flash_simt": 0, "paged": 0}
+    if counts != want or out["prefills"] != admissions:
+        fail(f"serve moe aligned: launches {counts}, prefills {out['prefills']}; want {want} "
+             f"({admissions} non-empty admissions x {cfg.n_layers} layers)")
+    comp = out["completions"][0]
+    _oracle_f32("oracle moe aligned", cfg, params, reqs[0].prompt, comp,
+                _aligned_path(params, PROMPT, GEN))
+    del params
+    return counts["flash_wgmma"]
+
+
+def phase_serve_moe_paged() -> int:
+    """Kimi-K2 (depth 1: 384 experts top-8 and a shared expert, 64/8 heads)
+    through the paged engine: the paged-attention kernel at rep 8, once a
+    layer and a decode step."""
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.scheduler import make_requests
+    full = configs.get(MOE_PAGED_ARCH)
+    cfg = full.replace(n_layers=MOE_PAGED_DEPTH)
+    params = _family_init(cfg, full.n_layers)
+    # the kernel at the served decode shape (rep 8) against its plain version
+    hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    pages = -(-(KIMI_PROMPT + KIMI_GEN) // BLOCK)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((KIMI_REQ, hkv, rep, cfg.hd), generator=g, device="cuda").to(torch.bfloat16)
+    kv = [torch.randn((KIMI_REQ * pages, BLOCK, hkv, cfg.hd), generator=g, device="cuda")
+          .to(torch.bfloat16) for _ in range(2)]
+    tables = torch.from_numpy(np.random.RandomState(4).permutation(KIMI_REQ * pages)
+                              .reshape(KIMI_REQ, pages).astype(np.int32)).cuda()
+    lengths = torch.tensor([KIMI_PROMPT + 7 * i + 1 for i in range(KIMI_REQ)],
+                           dtype=torch.int32, device="cuda")
+    _check_kernel(f"serve moe paged: paged_attention bf16 at B {KIMI_REQ}, Hkv {hkv}, rep {rep}, "
+                  f"hd {cfg.hd}, {pages} pages", pa.paged_attention(q, *kv, tables, lengths),
+                  pa.paged_attention_ref(q, *kv, tables, lengths), KERNEL_TOL[torch.bfloat16])
+    reqs = make_requests(KIMI_REQ, KIMI_PROMPT, KIMI_GEN, cfg.vocab, stagger=STAGGER)
+    out, counts = _serve_family("serve moe paged", cfg, params, reqs, 16, slots=KIMI_REQ,
+                                max_len=KIMI_PROMPT + KIMI_GEN, paged=True, block=BLOCK,
+                                chunk=CHUNK)
+    want = {"flash_wgmma": 0, "flash_simt": 0, "paged": out["decode_steps"] * cfg.n_layers}
+    if counts != want:
+        fail(f"serve moe paged: launches {counts}; want {want} (decode steps x layers)")
+    _oracle_f32("oracle moe paged", cfg, params, reqs[0].prompt, out["completions"][0],
+                _paged_path(params, KIMI_PROMPT, KIMI_GEN))
+    del params
+    return counts["paged"]
+
+
+def phase_serve_recurrent(arch: str) -> None:
+    """Zamba2 / xLSTM at full width and depth through the end-aligned engine's
+    per-token recurrent prefill (no kernel on this path: decode attention
+    is ``_sdpa``, the engines are products and elementwise ops)."""
+    from repro_torch import configs
+    from repro_torch.launch.scheduler import make_requests
+    cfg = configs.get(arch)
+    params = _family_init(cfg, cfg.n_layers)
+    reqs = make_requests(REC_REQ, REC_PROMPT, REC_GEN, cfg.vocab, stagger=STAGGER)
+    tag = RECURRENT_ARCHS[arch]
+    out, counts = _serve_family(f"serve {tag}", cfg, params, reqs, 8, slots=REC_SLOTS,
+                                max_len=REC_PROMPT + REC_GEN)
+    if out["prefills"] != REC_REQ or any(counts.values()):
+        fail(f"serve {arch}: {out['prefills']} per-token prefills, launches {counts}; want "
+             f"{REC_REQ} and none")
+    _oracle_f32(f"oracle {tag}", cfg, params, reqs[0].prompt, out["completions"][0],
+                _recurrent_path(params, REC_PROMPT, REC_GEN))
+    del params
+
+
+def phase_serve_encdec() -> int:
+    """Whisper-base at full size: stub frames (1, 1500, 512) from the seed,
+    ``make_prefill_step`` (the encoder and the decoder's fused prefill, each
+    layer's self-attention through the tensor-core flash kernel at hd 64)
+    and greedy ``make_decode_step``s; the logits against ``encdec.forward``
+    over the same tokens.  No scheduler, as in JAX."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.scheduler import make_requests
+    from repro_torch.models import encdec as E
+    from repro_torch.parallel import steps as S
+    cfg = configs.get("whisper-base")
+    params = _family_init(cfg, cfg.n_layers)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=g, device="cuda")
+    # the encoder's attention shape, kernel against plain
+    q, k, v = (torch.randn((1, cfg.n_heads, WHISPER_FRAMES, cfg.hd), generator=g,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    _check_kernel(f"serve encdec: flash_attention bf16 non-causal, {cfg.n_heads} heads, "
+                  f"L {WHISPER_FRAMES}, hd {cfg.hd}", fa.flash_attention(q, k, v, causal=False),
+                  fa.flash_attention_ref(q, k, v, causal=False), KERNEL_TOL[torch.bfloat16])
+    prompt = torch.from_numpy(np.asarray(make_requests(1, WHISPER_PROMPT, 1, cfg.vocab)[0]
+                                         .prompt)).cuda()[None]
+    prefill, decode = S.make_prefill_step(cfg), S.make_decode_step(cfg, return_logits=True)
+    total = WHISPER_PROMPT + WHISPER_GEN
+
+    def serve():
+        cache = E.init_cache(cfg, 1, total, device="cuda")
+        logits, cache, enc = prefill(params, {"tokens": prompt, "frames": frames}, cache)
+        got, toks = [logits[0]], [int(torch.argmax(logits[0]))]
+        ttft = time.perf_counter() - t0
+        for i in range(WHISPER_GEN - 1):
+            tok = torch.tensor(toks[-1:], dtype=torch.int32, device="cuda")
+            logits, cache = decode(params, tok, cache,
+                                   torch.tensor(WHISPER_PROMPT + i, device="cuda"), enc)
+            got.append(logits[0])
+            toks.append(int(torch.argmax(logits[0])))
+        return torch.stack(got), toks, ttft
+
+    t0 = time.perf_counter()
+    serve()                                                  # warmup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    got, toks, ttft = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _family_counts()
+    want = {"flash_wgmma": 2 * cfg.n_layers, "flash_simt": 0, "paged": 0}
+    print(f"[serve encdec] {cfg.name} bf16, {cfg.n_layers} + {cfg.n_layers} layers, frames "
+          f"{tuple(frames.shape)}, {WHISPER_PROMPT} prompt + {WHISPER_GEN} generated tokens: "
+          f"TTFT {ttft * 1e3:.1f} ms (encoder and prefill), {WHISPER_GEN / wall:.1f} tok/s over "
+          f"{wall:.3f} s; launches {counts} (want {want}: the encoder's and the decoder "
+          f"prefill's layers); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if counts != want:
+        fail(f"serve encdec: launches {counts}, want {want}")
+    seq = torch.cat([prompt[0], torch.tensor(toks[:-1], device="cuda")])[None]
+    with torch.no_grad():
+        ref = E.forward(params, frames, seq, cfg)[0][0, WHISPER_PROMPT - 1:]
+    rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"[oracle encdec] prefill + decode logits vs encdec.forward over {seq.shape[1]} "
+          f"tokens (bf16, the served arithmetic): max per-row relative RMS {rel:.3e} (bound "
+          f"{ORACLE_REL_RMS:g}), argmax agreement {agree:.3f}", flush=True)
+    if not torch.isfinite(got).all() or rel > ORACLE_REL_RMS:
+        fail(f"serve encdec: logits differ from encdec.forward: relative RMS {rel:.3e}")
+    del params
+    return counts["flash_wgmma"]
+
+
+def phase_train_families() -> None:
+    """Each family's reduced config (``configs.reduced``), f32: the loss and
+    every gradient leaf on the card against the CPU from the same state
+    (PERF.md section 2 gates: loss 1e-5 relative, each leaf 1e-4 normwise),
+    then one train step each, its loss and grad norm held to the same
+    bounds.  The parameters after the step are printed, not held: AdamW's
+    first step is nearly sign(g), so an entry whose gradient lies at the
+    rounding noise moves by the rate either way."""
+    from repro_torch import configs
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, tree_map, tree_unflatten
+    loss_tol, grad_tol = TRAIN_TOL["float32"]
+    pcfg = ParallelConfig(remat="none", fsdp_params=False, grad_dtype="float32")
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=8, z_loss=0.0)
+    rows = []
+    for arch in FAMILY_ARCHS:
+        cfg = configs.reduced(configs.get(arch)).replace(dtype="float32")
+        r = np.random.RandomState(0)
+        batch = {"tokens": torch.from_numpy(r.randint(0, cfg.vocab, (2, 64)).astype(np.int32))}
+        if cfg.enc_dec:
+            batch["frames"] = torch.from_numpy(r.randn(2, 256, cfg.d_model).astype(np.float32))
+        cpu = S.init_train_state(torch.Generator().manual_seed(0), cfg, pcfg)
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        res = {}
+        for name, state, b in (("cpu", cpu, batch), ("card", gpu, gbatch)):
+            live = [p.detach().requires_grad_(True) for p in leaves(state["params"])]
+            loss, m = S.make_loss_fn(cfg, pcfg, tcfg)(tree_unflatten(state["params"], live), b)
+            grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+            new, met = S.make_train_step(cfg, pcfg, tcfg)(state, b)
+            res[name] = (float(loss.detach()), float(m["aux"].detach()), [g.cpu() for g in grads],
+                         [t.cpu() for t in leaves(new["params"])], float(met["loss"]),
+                         float(met["grad_norm"]))
+        (lc, ac, gc, pc, sc, nc), (lg, ag, gg, pg, sg, ng) = res["cpu"], res["card"]
+        rel = abs(lg - lc) / abs(lc)
+        gerr = max(float((a - b).norm() / max(float(b.norm()), 1e-30)) for a, b in zip(gg, gc))
+        step_rel = max(abs(sg - sc) / abs(sc), abs(ng - nc) / abs(nc))
+        perr = max(float((a - b).norm() / max(float(b.norm()), 1e-30)) for a, b in zip(pg, pc))
+        rows.append(f"{arch} loss {lc:.4f} (aux {ac:.4f}) relative {rel:.1e}, worst grad leaf "
+                    f"{gerr:.1e}, the step's loss and grad norm {step_rel:.1e}, parameters "
+                    f"after it {perr:.1e} (not held)")
+        if not (rel <= loss_tol and gerr <= grad_tol and step_rel <= loss_tol):
+            fail(f"train families {arch}: card vs CPU loss relative {rel:.2e}, the step's loss "
+                 f"and grad norm {step_rel:.2e} (bound {loss_tol}), worst grad leaf {gerr:.2e} "
+                 f"(bound {grad_tol})")
+    print("[train families] reduced configs, f32, batch 2 x 64 (whisper: 256 frames), card "
+          "vs CPU from the same state: " + "; ".join(rows), flush=True)
+
+
+def rank_moe(device, seed: int) -> dict:
+    """One rank of the MoE layouts phase: Mixtral-8x22B's MoE FFN at full
+    width (bf16 weights, f32 arithmetic) on the mesh (2, 4) in the EP layout (2 experts a rank, FSDP over
+    data), the a2a layout (4 experts a data shard, d_ff / 4 a rank) and,
+    with 3 experts, the TP layout (d_ff / 4 a rank); the outputs assembled,
+    the walls and the bytes this rank staged."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import P, assemble
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.sharding import shard_params
+    mesh = make_local_mesh(MOE_MESH_MODEL)
+    cfgs = _moe_rank_cfgs()
+    b, s = MOE_TOKENS
+    rows = b // mesh.size("data")
+    i = mesh.index("data")
+    out = {}
+    for name, (key, kw) in _moe_rank_layouts().items():
+        cfg = cfgs[key]
+        ctx = M.MeshCtx(mesh=mesh, **kw)
+        mesh.make_groups(ctx.batch_axes, ctx.fsdp_axes)
+        x, p = _moe_rank_inputs(cfg, seed)
+        local = {k: (v.clone() if torch.is_tensor(v) else {n: w.clone() for n, w in v.items()})
+                 for k, v in shard_params({"moe": p}, cfg, ctx)["moe"].items()}
+        del p
+        torch.cuda.empty_cache()
+        x = x[i * rows:(i + 1) * rows]
+        walls = []
+        for _ in range(2):                                 # the first builds nothing: warm
+            torch.cuda.synchronize()
+            dist.barrier()
+            staged, t0 = mesh.staged_bytes, time.perf_counter()
+            with mesh, torch.no_grad():
+                y, _ = M.moe_ffn(local, x, cfg, ctx)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            staged = mesh.staged_bytes - staged
+        with mesh:
+            y = assemble(y, P("data"), mesh)
+        out[name] = {"y": y.float().cpu() if mesh.rank == 0 else None, "wall": walls[-1],
+                     "staged": staged, "peak": torch.cuda.max_memory_allocated()}
+        del local, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_rank_cfgs() -> dict:
+    from repro_torch import configs
+    # f32 arithmetic on bf16 weights, as the reference's program runs in
+    # f32: the ff-split layouts sum bf16-rounded partials otherwise, which
+    # the elementwise bound does not allow where partials cancel
+    cfg = configs.get(MOE_ALIGNED_ARCH).replace(n_layers=1, dtype="float32")
+    # a capacity no assignment overflows, so EP and a2a drop nothing and
+    # compute what the dropless one-process layer computes
+    moe = dataclasses.replace(cfg.moe, capacity_factor=float(MOE_MESH_MODEL * 2))
+    return {"eight": cfg.replace(moe=moe),
+            "three": cfg.replace(moe=dataclasses.replace(moe, n_experts=3))}
+
+
+def _moe_rank_layouts() -> dict:
+    return {"ep": ("eight", dict(fsdp_axes=("data",))),
+            "a2a": ("eight", dict(fsdp_axes=(), moe_a2a_ep=True)),
+            "tp": ("three", dict(fsdp_axes=("data",)))}
+
+
+def _moe_rank_inputs(cfg, seed: int):
+    """The layer (bf16 matrices, f32 router) and the input (B, S, d) bf16,
+    from the seed on the card: the same numbers in every process."""
+    from repro_torch.models import moe as M
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(MOE_TOKENS + (cfg.d_model,), generator=g, device="cuda").to(torch.bfloat16)
+    return x, M.moe_init(g, cfg, dtype=torch.bfloat16)
+
+
+def phase_moe_ranks() -> None:
+    """The MoE layouts on 8 gloo ranks sharing the card, each against the
+    one-process ``moe_ffn`` on the same input and layer."""
+    from repro_torch.core.mesh import launch
+    from repro_torch.models import moe as M
+    torch.cuda.empty_cache()
+    refs = {}
+    for key, cfg in _moe_rank_cfgs().items():
+        x, p = _moe_rank_inputs(cfg, 11)
+        with torch.no_grad():
+            refs[key] = M.moe_ffn(p, x, cfg)[0].float().cpu()
+        del x, p
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch(MOE_RANKS, rank_moe, 11, device="cuda", timeout=900)
+    for name, (key, kw) in _moe_rank_layouts().items():
+        y, ref = torch.from_numpy(res[0][name]["y"]), refs[key]   # results come back as numpy
+        err = (y - ref).abs()
+        ok = bool((err <= MOE_RANK_TOL["atol"] + MOE_RANK_TOL["rtol"] * ref.abs()).all())
+        cfg = _moe_rank_cfgs()[key]
+        staged = ", ".join(f"{r[name]['staged'] / 1e6:.1f}" for r in res)
+        peaks = ", ".join(f"{r[name]['peak'] / 1e9:.2f}" for r in res)
+        print(f"[moe ranks] {name}: {cfg.name} MoE FFN, {cfg.moe.n_experts} experts top-"
+              f"{cfg.moe.top_k}, d {cfg.d_model}, d_ff {cfg.moe.d_ff_expert}, bf16 weights, "
+              f"f32 arithmetic, "
+              f"{MOE_TOKENS[0]} x {MOE_TOKENS[1]} tokens on mesh (2, {MOE_MESH_MODEL}) {kw}: "
+              f"max |ranks - one process| {err.max().item():.3e} of max |y| "
+              f"{ref.abs().max().item():.3e} (rtol {MOE_RANK_TOL['rtol']}, atol "
+              f"{MOE_RANK_TOL['atol']}); wall (slowest rank) "
+              f"{max(r[name]['wall'] for r in res) * 1e3:.1f} ms; staged by rank {staged} MB; "
+              f"peak memory by rank {peaks} GB", flush=True)
+        if not ok:
+            fail(f"moe ranks {name}: the layout differs from the one-process layer")
+    print(f"[moe ranks] {MOE_RANKS} ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1977,6 +2542,13 @@ def main() -> None:
     counts, link = _timed("ranks", phase_distributed)
     _timed("train tp", phase_train_tp, cfg, train_losses, link)
     _timed("train layouts", phase_train_layouts, link)
+    _timed("serve moe aligned", phase_serve_moe_aligned)
+    _timed("serve moe paged", phase_serve_moe_paged)
+    for arch in RECURRENT_ARCHS:
+        _timed(f"serve {RECURRENT_ARCHS[arch]}", phase_serve_recurrent, arch)
+    _timed("serve encdec", phase_serve_encdec)
+    _timed("train families", phase_train_families)
+    _timed("moe ranks", phase_moe_ranks)
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     kernels = [
         _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",

@@ -22,12 +22,16 @@ Two engines (``paged=`` selects one):
   | paged              | shared page arena +     | CHUNKED: fixed (1,chunk) | prompt+gen <= pool capacity |
   |                    | per-request block table | slices interleaved with  | (and the block-table width  |
   |                    | (serving/kvcache.py)    | decode ticks             | cap max_len)                |
+  | recurrent fallback | state leaves (no        | per-token B=1 loop (pad  | prompt+gen <= max_len       |
+  | (mamba2/m/sLSTM)   | position indexing)      | would corrupt the state) |                             |
 
 End-aligned admission stalls every in-flight decode for a whole prompt
 forward (through the flash-attention kernel); chunked prefill bounds that
-stall to one ``chunk``-token slice per tick.  The recurrent per-token
-prefill fallback of the JAX engine is not ported (its model families are
-not): a config without fused prefill is refused.
+stall to one ``chunk``-token slice per tick.  A pattern with recurrent
+kinds (Mamba2, mLSTM, sLSTM) cannot take a right-padded prompt, so its
+admission feeds the prompt through decode steps one token at a time and
+takes the first token from the last prompt token's logits (sampled when
+sampling is on).  Enc-dec models are not scheduled, as in JAX.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.parallel import steps as S
 from repro_torch.serving import BlockPool
+from repro_torch.tree import leaves
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
@@ -134,6 +139,7 @@ class Scheduler:
         self.temperature, self.top_p, self.seed = temperature, top_p, seed
         self.sampling = temperature > 0.0
         self.paged = paged
+        self.fused = T.supports_fused_prefill(cfg)
         if paged:
             if not T.supports_paged(cfg):
                 raise NotImplementedError(
@@ -147,13 +153,11 @@ class Scheduler:
             self.pool = BlockPool(pool_blocks if pool_blocks is not None
                                   else slots * self.n_pages, block)
             self._chunk_prefill = S.make_chunk_prefill_step(cfg)
-        elif not T.supports_fused_prefill(cfg):
-            raise NotImplementedError(
-                f"{cfg.block_pattern} needs the recurrent per-token prefill "
-                f"fallback, which is not ported (ROADMAP, port queue: other "
-                f"model families)")
-        else:
+        elif self.fused:
             self._prefill = S.make_prefill_step(cfg)
+        else:
+            # the per-token prefill fallback reads each step's logits
+            self._step_logits = S.make_decode_step(cfg, return_logits=True)
         self._decode = S.make_decode_step(cfg, return_logits=self.sampling, paged=paged)
         self.reset()
 
@@ -184,11 +188,13 @@ class Scheduler:
 
     def _insert(self, row, slot: int) -> None:
         """Copy a one-row cache into ``slot``'s row of the slot cache, in
-        place, from position 0 (JAX's ``_insert_impl``); positions past the
-        row keep the previous occupant's K/V, behind the causal mask."""
-        for (ck, cv), (rk, rv) in zip(self.cache, row):
-            ck[slot, :rk.shape[1]].copy_(rk[0])
-            cv[slot, :rv.shape[1]].copy_(rv[0])
+        place, from position 0 (JAX's ``_insert_impl``), cast to the slot
+        cache's dtype: K/V positions past the row keep the previous
+        occupant's, behind the causal mask; a recurrent state is replaced
+        whole."""
+        for big, small in zip(self.cache, row):
+            for b, s in zip(leaves(big), leaves(small)):
+                b[slot, :s.shape[1]].copy_(s[0])
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -234,12 +240,15 @@ class Scheduler:
         prompt = np.asarray(req.prompt, np.int32)
         lp = int(prompt.shape[0])
         if lp == 0:
-            # no prompt: generation starts from BOS at position 0 on a
-            # zeroed row
+            # no prompt: generation starts from BOS at position 0 on a fresh
+            # row -- recurrent state has no position indexing, so the
+            # previous occupant's must be zeroed (a prompt's row replaces it)
             self._insert(T.init_cache(self.cfg, 1, self._bucketed(1), device=self.device),
                          slot)
             self._tok[slot], self._pos[slot] = self.bos, 0
             return None
+        if not self.fused:
+            return self._admit_recurrent(prompt, slot)
         lb = self._bucketed(lp)
         toks = np.zeros((1, lb), np.int32)
         toks[0, :lp] = prompt
@@ -247,6 +256,20 @@ class Scheduler:
                  "length": torch.tensor([lp], dtype=torch.int32, device=self.device)}
         logits, row = self._prefill(self.params, batch,
                                     T.init_cache(self.cfg, 1, lb, device=self.device))
+        first = self._first_token(logits)
+        self._insert(row, slot)
+        self._tok[slot], self._pos[slot] = first, lp
+        return first
+
+    def _admit_recurrent(self, prompt: np.ndarray, slot: int) -> int:
+        """Recurrent admission: the prompt through unpadded B=1 decode steps
+        (padding would enter the state); the last step's logits give the
+        first token."""
+        lp = int(prompt.shape[0])
+        row = T.init_cache(self.cfg, 1, self._bucketed(lp), device=self.device)
+        for i in range(lp):
+            logits, row = self._step_logits(self.params, self._to_device(prompt[i:i + 1]),
+                                            row, i)
         first = self._first_token(logits)
         self._insert(row, slot)
         self._tok[slot], self._pos[slot] = first, lp
@@ -294,9 +317,9 @@ class Scheduler:
         """Serve ``requests`` (plus anything already ``submit``ted) to
         completion.  Tokens stream per request through ``on_token(rid,
         token)`` (one host sync per engine tick).  Returns completions, the
-        tick, decode-step and fused-prefill counts, wall time, throughput
-        and, in paged mode, the block pool's occupancy/fragmentation
-        report."""
+        tick, decode-step and prefill (non-empty end-aligned admission)
+        counts, wall time, throughput and, in paged mode, the block pool's
+        occupancy/fragmentation report."""
         for req in requests:
             self.submit(req)
         pending = deque(sorted(self._queue, key=lambda r: (r.arrival, r.rid)))

@@ -3,11 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --requests 8 --prompt-len 512 --gen 64 --slots 4
 
-Serves the arch at its published width on the card (``--device``, default
-``cuda``), with random weights from a seeded generator; ``--reduced``
-shrinks it to the JAX CLI's CPU size.  Each prompt is prefilled in ONE fused
-cache-writing forward (through the flash-attention kernel), right-padded to
-a ``--bucket`` multiple; requests share a fixed slot pool: staggered
+Serves any registered decoder arch (dense, MoE, Mamba2 hybrid, xLSTM) at
+its published width on the card (``--device``, default ``cuda``), with
+random weights from a seeded generator; ``--reduced`` shrinks it to the JAX
+CLI's CPU size.  An enc-dec arch exits, as the JAX CLI does (drive
+``models.encdec`` through ``parallel.steps``).  Each prompt is prefilled in
+ONE fused cache-writing forward (through the flash-attention kernel),
+right-padded to a ``--bucket`` multiple (a pattern with recurrent kinds
+feeds it token by token through the decode step instead, unpadded);
+requests share a fixed slot pool: staggered
 arrivals are admitted into free slots mid-flight, finished requests
 evicted, greedy (or sampled) tokens streamed per request
 (``launch/scheduler.py``).  ``--naive`` serves one request at a time
@@ -80,6 +84,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
+    if cfg.enc_dec:
+        raise SystemExit(f"{cfg.name} is an enc-dec model, which the scheduler does not "
+                         f"serve; drive models.encdec through parallel.steps' "
+                         f"make_prefill_step / make_decode_step")
     if args.paged and not T.supports_paged(cfg):
         raise SystemExit(f"--paged needs a pure-attention no-SWA arch; "
                          f"{cfg.name} has pattern {cfg.block_pattern} "

@@ -1,7 +1,8 @@
 """Training launcher: the end-to-end entry point (the paper's example application (b)).
 
-Trains an arch -- on the card unless ``--device cpu`` -- with the JAX
-launcher's flags, defaults and loss check:
+Trains an arch of any family -- on the card unless ``--device cpu`` --
+with the JAX launcher's flags, defaults and loss check (an enc-dec arch
+reads the pipeline's stub ``frames``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch chatglm3-6b --steps 8 --batch 2 --seq 64 --ckpt-every 3 \

@@ -279,8 +279,9 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
               cache_pos=None,
               block_tables: Optional[torch.Tensor] = None,
               ctx=None,
+              xattn_kv: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Self-attention.
+    """Self- (or cross-) attention.
 
     No cache: full (causal) attention over x, through the flash kernel, or
     through ``_sdpa`` when autograd records it.
@@ -295,10 +296,16 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     tensor ``cache_pos`` (one token per row, read by the paged-attention
     kernel); chunked prefill is a scalar ``cache_pos`` (one request, B=1,
     attending causally over the gathered page view).
+    Cross-attention (the enc-dec decoder): ``xattn_kv`` (B, T, d) is the
+    encoder output; keys and values come from it, without RoPE, cache or
+    mask, through ``_sdpa`` (the reference's arithmetic).
     With ``ctx`` and no cache: the sequence-sharded region of the module
     docstring (``_attention_ctx``).
     """
     if ctx is not None:
+        if xattn_kv is not None:
+            raise NotImplementedError("cross-attention under a mesh ctx (enc-dec on a "
+                                      "mesh) is not ported (ROADMAP queue 1, item 6)")
         if cache is not None:
             raise NotImplementedError(
                 "attention with a cache under a mesh ctx (the serve engine with a "
@@ -315,17 +322,21 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = hq // hkv
 
+    kv_src = xattn_kv if xattn_kv is not None else x
     q = dense(x, p["wq"], cfg).reshape(b, s, hkv, rep, hd)
-    k = dense(x, p["wk"], cfg).reshape(b, s, hkv, hd)
-    v = dense(x, p["wv"], cfg).reshape(b, s, hkv, hd)
+    k = dense(kv_src, p["wk"], cfg).reshape(b, -1, hkv, hd)
+    v = dense(kv_src, p["wv"], cfg).reshape(b, -1, hkv, hd)
     if cfg.qk_norm:
         q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    q = rope(q.reshape(b, s, hq, hd), positions, cfg).reshape(b, s, hkv, rep, hd)
-    k = rope(k, positions, cfg)
+    if xattn_kv is None:
+        q = rope(q.reshape(b, s, hq, hd), positions, cfg).reshape(b, s, hkv, rep, hd)
+        k = rope(k, positions, cfg)
 
     new_cache = None
-    if cache is not None and block_tables is None:
+    if xattn_kv is not None:
+        out = _sdpa(q, k, v, causal=False, window=cfg.window, q_offset=0)
+    elif cache is not None and block_tables is None:
         ck, cv = cache                      # (B, L, Hkv, hd) rows
         lk = ck.shape[1]
         per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1

@@ -1,30 +1,41 @@
-"""Decoder-only LM assembly for the ``"attn"`` block kind (dense models).
+"""Decoder-only LM assembly: the dense, MoE, hybrid (Mamba2) and xLSTM
+families.
 
 Mirrors the JAX package's ``models/transformer.py``.  JAX stacks the layer
-parameters over periods and scans them; here ``params["layers"]`` is a
-plain list with one dict per layer and the scan is a Python loop.  A cache
-is a list with one (K, V) pair per layer, updated in place: per-slot rows
-``(B, L, Hkv, hd)`` (end-aligned) or page arenas (paged).
+parameters over periods of ``cfg.block_pattern`` and scans them; here
+``params["layers"]`` is a plain list with one dict per layer (layer j *
+len(pattern) + i has kind ``pattern[i]``) and the scan is a Python loop.
+Zamba2's one ``shared_attn`` weight set sits beside the layers and is
+applied at every ``mamba2_attn`` layer, each with its own KV cache.
 
-  * ``forward``: full-sequence logits, no cache (the tests' and
-    ``chip_smoke.py``'s oracle for the decode paths, and the train step's
-    model, differentiable, with JAX's ``remat`` modes);
+A cache is a list with one entry per layer: a (K, V) pair for the
+attention kinds (``attn``, ``attn_moe``), updated in place -- per-slot rows
+``(B, L, Hkv, hd)`` (end-aligned) or page arenas (paged) -- and a dict of
+state for the recurrent kinds, replaced at each call: ``{"mamba": {"conv",
+"ssm"}}`` (with ``"shared_attn": (K, V)`` at a ``mamba2_attn`` layer),
+``{"mlstm": {"ssm"}}``, ``{"slstm": {"c", "n", "m"}}``.
+
+  * ``forward``: full-sequence logits, no cache (the oracle of the decode
+    paths, and the train step's model, differentiable, with JAX's
+    ``remat`` modes); ``return_aux`` adds the MoE load-balance loss;
   * ``init_cache`` / ``prefill`` / ``decode_step``: the end-aligned serving
-    engine's model calls (one fused cache-writing prefill per prompt, a
-    batched decode over per-row positions);
+    engine's model calls (a fused cache-writing prefill, right-padded for
+    the attention kinds, unpadded for the recurrent ones; a batched decode
+    over per-row positions);
   * ``init_paged_cache`` / ``prefill_paged`` / ``decode_step(block_tables=)``:
-    the paged serving engine's model calls.
+    the paged serving engine's model calls (pure attention patterns).
 
 Under a mesh ctx (``models.moe.MeshCtx``) ``forward`` runs inside one rank
 on its local parameter blocks and batch rows and returns its logits block
 (vocabulary-split over ``model`` under tensor parallelism); the layers
-issue the collectives (``models/layers.py``).  ``init(shard=)`` keeps each
-leaf's block as soon as its group is drawn, so a rank never holds the whole
-tree.  MoE, SSM and xLSTM blocks are not ported yet (ROADMAP, port queue).
+issue the collectives (``models/layers.py``, ``models/moe.py``).
+``init(shard=)`` keeps each leaf's block as soon as its group is drawn, so
+a rank never holds the whole tree.  The recurrent kinds run on one process
+only (their blocks raise under a ctx: ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -32,45 +43,119 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.tree import leaves_with_path, tree_map, tree_unflatten
 
 Params = dict
-Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+Cache = List[Any]            # per layer: (K, V) for attention kinds, a dict of state else
+ATTN_KINDS = ("attn", "attn_moe")
+# the parameter groups JAX stacks (over periods, or over layers for enc-dec)
+STACKED = ("layers", "enc_layers", "dec_layers")
 
 
-def _check_kinds(cfg: ModelConfig) -> None:
-    if any(k != "attn" for k in cfg.block_pattern) or cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense 'attn' block kind is ported; pattern "
-            f"{cfg.block_pattern} (ROADMAP, port queue: other model families)")
+def refuse_recurrent_ctx(cfg: ModelConfig, ctx) -> None:
+    """A pattern with recurrent kinds runs on one process only: refused
+    under a mesh ctx before any collective (ROADMAP queue 1, item 6)."""
+    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
+    if kinds:
+        S.refuse_ctx(ctx, f"{cfg.name}'s {'/'.join(kinds)} blocks")
 
 
-def _block_apply(p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
-                 cache, cache_pos, block_tables, ctx=None):
-    x1 = L.apply_norm(p["ln1"], h, cfg)
-    attn_out, new_cache = L.attention(p["attn"], x1, positions, cfg, cache=cache,
-                                      cache_pos=cache_pos, block_tables=block_tables,
-                                      ctx=ctx)
-    if cfg.parallel_block:                 # command-r style: attn ∥ mlp
-        return h + attn_out + L.mlp(p["mlp"], x1, cfg, ctx), new_cache
-    h = h + attn_out
-    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg, ctx), new_cache
+def kind_of(cfg: ModelConfig, i: int) -> str:
+    """The block kind of layer ``i``."""
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
 
 
+# ---------------------------------------------------------------------------
+# Per-kind init / apply
+# ---------------------------------------------------------------------------
+def _block_init(kind: str, gen, cfg: ModelConfig, dtype) -> Params:
+    dev = L._device(gen)
+    ln1 = L.norm_init(cfg.d_model, cfg, dev)
+    if kind in ATTN_KINDS:
+        p = {"ln1": ln1, "attn": L.attention_init(gen, cfg, dtype),
+             "ln2": L.norm_init(cfg.d_model, cfg, dev)}
+        if kind == "attn":
+            p["mlp"] = L.mlp_init(gen, cfg, dtype=dtype)
+        else:
+            p["moe"] = M.moe_init(gen, cfg, dtype)
+        return p
+    if kind in ("mamba2", "mamba2_attn"):
+        return {"ln1": ln1, "mamba": S.mamba2_init(gen, cfg, dtype)}
+    if kind == "mlstm":
+        return {"ln1": ln1, "mlstm": X.mlstm_init(gen, cfg, dtype)}
+    if kind == "slstm":
+        return {"ln1": ln1, "slstm": X.slstm_init(gen, cfg, dtype)}
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _block_apply(kind: str, p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
+                 cache, cache_pos, block_tables, shared_attn: Optional[Params], ctx=None):
+    """Returns (h, new cache entry, aux loss contribution)."""
+    aux = None
+    if kind in ATTN_KINDS:
+        x1 = L.apply_norm(p["ln1"], h, cfg)
+        attn_out, new = L.attention(p["attn"], x1, positions, cfg, cache=cache,
+                                    cache_pos=cache_pos, block_tables=block_tables, ctx=ctx)
+        if cfg.parallel_block:             # command-r style: attn || ffn on one input
+            x2 = x1
+        else:
+            h = h + attn_out
+            x2 = L.apply_norm(p["ln2"], h, cfg)
+        if kind == "attn":
+            ffn_out = L.mlp(p["mlp"], x2, cfg, ctx)
+        else:
+            ffn_out, probs = M.moe_ffn(p["moe"], x2, cfg, ctx)
+            aux = M.load_balance_loss(probs, ctx)
+        if cfg.parallel_block:
+            return h + attn_out + ffn_out, new, aux
+        return h + ffn_out, new, aux
+
+    if kind in ("mamba2", "mamba2_attn"):
+        out, m_new = S.mamba2_block(p["mamba"], L.apply_norm(p["ln1"], h, cfg), cfg,
+                                    cache=cache["mamba"] if cache is not None else None, ctx=ctx)
+        h = h + out
+        new = {"mamba": m_new} if cache is not None else None
+        if kind == "mamba2_attn":
+            a_out, sa_new = L.attention(shared_attn["attn"],
+                                        L.apply_norm(shared_attn["ln1"], h, cfg), positions,
+                                        cfg, cache=cache["shared_attn"] if cache is not None
+                                        else None, cache_pos=cache_pos, ctx=ctx)
+            h = h + a_out
+            h = h + L.mlp(shared_attn["mlp"], L.apply_norm(shared_attn["ln2"], h, cfg), cfg,
+                          ctx)
+            if cache is not None:
+                new["shared_attn"] = sa_new
+        return h, new, aux
+
+    if kind in ("mlstm", "slstm"):
+        block = X.mlstm_block if kind == "mlstm" else X.slstm_block
+        out, s_new = block(p[kind], L.apply_norm(p["ln1"], h, cfg), cfg,
+                           cache=cache[kind] if cache is not None else None, ctx=ctx)
+        return h + out, ({kind: s_new} if cache is not None else None), aux
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init
+# ---------------------------------------------------------------------------
 def init(cfg: ModelConfig, generator: Optional[torch.Generator],
          dtype: Optional[torch.dtype] = None,
          shard: Optional[Callable[[tuple, torch.Tensor], torch.Tensor]] = None) -> Params:
     """Random parameters on ``generator``'s device, drawn as the JAX init
     draws them (normal, std 1/sqrt(d_in); embedding std 0.02; norm scales
-    ones): every leaf in ``cfg.param_dtype`` (f32 master weights), as in
+    ones; the router, the conv weights and the SSM's A_log / D / dt_bias in
+    f32): every leaf in ``cfg.param_dtype`` (f32 master weights), as in
     JAX, unless ``dtype`` asks for the matrices in another dtype.  The
     numbers differ from the JAX init's; tests carry JAX parameters over
     with ``convert``.  ``generator=None`` builds the tree on the ``meta``
     device (shapes and dtypes, no memory: JAX's ``eval_shape``).
     ``shard(path, leaf)`` replaces each leaf right after its group (the
-    embedding, one layer, the final norm) is drawn -- with a rank's block,
-    so the whole tree never exists at once; the draws are the same."""
-    _check_kinds(cfg)
+    embedding, one layer, the shared attention, the final norm) is drawn --
+    with a rank's block, so the whole tree never exists at once; the draws
+    are the same."""
     dev = L._device(generator)
 
     def keep(prefix, tree):
@@ -79,23 +164,29 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
         return tree_unflatten(tree, [shard(prefix + path, leaf)
                                      for path, leaf in leaves_with_path(tree)])
 
-    return {
+    params = {
         "embed": keep(("embed",), L.embed_init(generator, cfg, dtype)),
-        "layers": [keep(("layers", i), {"ln1": L.norm_init(cfg.d_model, cfg, dev),
-                                        "attn": L.attention_init(generator, cfg, dtype),
-                                        "ln2": L.norm_init(cfg.d_model, cfg, dev),
-                                        "mlp": L.mlp_init(generator, cfg, dtype=dtype)})
+        "layers": [keep(("layers", i), _block_init(kind_of(cfg, i), generator, cfg, dtype))
                    for i in range(cfg.n_layers)],
         "final_norm": keep(("final_norm",), L.norm_init(cfg.d_model, cfg, dev)),
     }
+    if "mamba2_attn" in cfg.block_pattern:
+        params["shared_attn"] = keep(("shared_attn",), {
+            "ln1": L.norm_init(cfg.d_model, cfg, dev),
+            "attn": L.attention_init(generator, cfg, dtype),
+            "ln2": L.norm_init(cfg.d_model, cfg, dev),
+            "mlp": L.mlp_init(generator, cfg, dtype=dtype)})
+    return params
 
 
 def decay_mask(params: Params) -> dict:
     """The leaves AdamW decays, as the JAX package's train step decays them:
-    those of more than one dimension in JAX's layout, where every per-layer
-    leaf is stacked over the periods.  So each layer's norm scales (and
-    biases) take weight decay there and here; the final norm's do not."""
-    return {k: tree_map(lambda t, stacked=(k == "layers"): stacked or t.dim() > 1, v)
+    those of more than one dimension in JAX's layout, where every leaf of a
+    stacked group (``STACKED``: the layers, or the enc-dec's encoder and
+    decoder layers) has the stacking dim.  So each layer's norm scales (and
+    biases, and the SSM's A_log / D / dt_bias) take weight decay there and
+    here; the final norm's, and the unstacked shared attention's, do not."""
+    return {k: tree_map(lambda t, stacked=(k in STACKED): stacked or t.dim() > 1, v)
             for k, v in params.items()}
 
 
@@ -108,42 +199,61 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            ctx=None, remat: str = "none") -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V) f32, causal, no cache.
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)`` with the backward recomputing what ``remat`` says, as
+    JAX's ``jax.checkpoint`` per layer: ``"none"`` keeps every activation,
+    ``"full"`` only the inputs (``torch.utils.checkpoint``), ``"dots"`` the
+    inputs and the 2-D matmul outputs (selective checkpointing)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(
+                              _save_matmuls))
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
 
-    ``remat`` says what the backward pass recomputes, as JAX's ``forward``
-    does with ``jax.checkpoint`` per layer: ``"none"`` keeps every
-    activation, ``"full"`` only each layer's input (``torch.utils.
-    checkpoint``), ``"dots"`` each layer's input and its 2-D matmul outputs
-    (selective checkpointing).  The numbers are the same in every mode.
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            ctx=None, remat: str = "none", return_aux: bool = False):
+    """tokens (B, S) -> logits (B, S, V) f32, causal, no cache; with
+    ``return_aux``, (logits, aux): the sum over MoE layers of the
+    load-balance loss (an f32 0 without MoE layers), as JAX's ``forward``
+    returns them.
+
+    ``remat`` says what the backward pass recomputes (``remat_call``); the
+    numbers are the same in every mode.
 
     ``ctx``: this rank's batch rows and parameter blocks in, its logits
     block out (B/dp, S, V/tp); a recompute issues its layer's collectives
     again, in the same order on every rank."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
-    if ctx is not None and ctx.seq_parallel:
-        raise NotImplementedError("a sequence-parallel residual (ctx.seq_parallel) is not "
-                                  "ported (ROADMAP queue 1, item 8)")
+    if ctx is not None:
+        refuse_recurrent_ctx(cfg, ctx)
+        if ctx.seq_parallel:
+            raise NotImplementedError("a sequence-parallel residual (ctx.seq_parallel) is "
+                                      "not ported (ROADMAP queue 1, item 8)")
     h = L.embed(params["embed"], tokens, cfg, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    shared_attn = params.get("shared_attn")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def layer(h, p):
-        h = _block_apply(p, h, positions, cfg, None, None, None, ctx)[0]
-        return h if ctx is None else _constrain(h, ctx)
+    for i, p in enumerate(params["layers"]):
+        kind = kind_of(cfg, i)
 
-    for p in params["layers"]:
-        if remat == "none":
-            h = layer(h, p)
-        elif remat == "full":
-            h = checkpoint(layer, h, p, use_reentrant=False)
-        else:
-            h = checkpoint(layer, h, p, use_reentrant=False,
-                           context_fn=lambda: create_selective_checkpoint_contexts(
-                               _save_matmuls))
+        def layer(h, p, kind=kind):
+            h, _, a = _block_apply(kind, p, h, positions, cfg, None, None, None, shared_attn,
+                                   ctx)
+            h = h if ctx is None else _constrain(h, ctx)
+            return h, (a if a is not None else torch.zeros((), device=h.device))
+
+        h, a = remat_call(layer, remat, h, p)
+        aux = aux + a
     h = L.apply_norm(params["final_norm"], h, cfg)
-    return L.logits(params["embed"], h, cfg, ctx)
+    logits = L.logits(params["embed"], h, cfg, ctx)
+    return (logits, aux) if return_aux else logits
 
 
 def _constrain(h: torch.Tensor, ctx) -> torch.Tensor:
@@ -155,34 +265,71 @@ def _constrain(h: torch.Tensor, ctx) -> torch.Tensor:
     return h
 
 
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
                dtype: torch.dtype = torch.bfloat16) -> Cache:
-    """One (K, V) pair of ``(batch, kv_len, kv_heads, hd)`` zero rows per
-    layer, ``kv_len = min(max_len, window)`` for SWA (a ring).  K/V are
-    stored in bf16 whatever the model dtype, as in the JAX package."""
-    _check_kinds(cfg)
+    """One entry per layer: a (K, V) pair of ``(batch, kv_len, kv_heads,
+    hd)`` zero rows for an attention kind (``kv_len = min(max_len,
+    window)`` for SWA: a ring), in ``dtype`` (bf16 whatever the model dtype,
+    as in the JAX package); the recurrent kinds' state: the Mamba2 conv
+    window in ``dtype`` and its SSM state in f32 (plus the shared
+    attention's K/V at ``mamba2_attn``), the mLSTM state and the sLSTM's c,
+    n (0) and m (-1e30) in f32."""
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
     shp = (batch, kv_len, cfg.n_kv_heads, cfg.hd)
-    return [(torch.zeros(shp, dtype=dtype, device=device),
-             torch.zeros(shp, dtype=dtype, device=device))
-            for _ in range(cfg.n_layers)]
+
+    def kv():
+        return (torch.zeros(shp, dtype=dtype, device=device),
+                torch.zeros(shp, dtype=dtype, device=device))
+
+    def one(kind):
+        if kind in ATTN_KINDS:
+            return kv()
+        if kind in ("mamba2", "mamba2_attn"):
+            c = {"mamba": S.mamba2_init_cache(batch, cfg, device, dtype)}
+            if kind == "mamba2_attn":
+                c["shared_attn"] = kv()
+            return c
+        if kind == "mlstm":
+            return {"mlstm": X.mlstm_init_cache(batch, cfg, device)}
+        if kind == "slstm":
+            return {"slstm": X.slstm_init_cache(batch, cfg, device)}
+        raise ValueError(f"unknown block kind {kind!r}")
+
+    return [one(kind_of(cfg, i)) for i in range(cfg.n_layers)]
 
 
 def supports_fused_prefill(cfg: ModelConfig) -> bool:
     """True when ``prefill`` handles arbitrary (right-padded, any-length)
     prompts: pure-attention patterns, where causal masking makes end-padding
-    invisible."""
-    return all(k == "attn" for k in cfg.block_pattern)
+    invisible.  The recurrent kinds do support ``prefill``, but only
+    unpadded, with a length the chunk scan divides: the scheduler falls
+    back to the per-token loop for them."""
+    return all(k in ATTN_KINDS for k in cfg.block_pattern)
+
+
+def _layers(params: Params, h: torch.Tensor, positions, cfg: ModelConfig, cache: Cache,
+            cache_pos, block_tables) -> torch.Tensor:
+    """Every layer over ``h`` with its cache entry, replaced in ``cache``."""
+    shared_attn = params.get("shared_attn")
+    for i, p in enumerate(params["layers"]):
+        h, cache[i], _ = _block_apply(kind_of(cfg, i), p, h, positions, cfg, cache[i],
+                                      cache_pos, block_tables, shared_attn)
+    return h
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig, *,
             length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
     """Cache-writing full-sequence forward: one fused call replaces a
     prompt-length loop of decode steps.  tokens (B, S) start at position 0;
-    every layer writes the K/V of all S tokens into ``cache`` and attends
-    through the flash kernel.  ``length``: optional (B,) true prompt
-    lengths of a right-padded batch (pad entries are causally invisible).
-    Returns (last-position logits (B, V) f32, cache)."""
+    every attention layer writes the K/V of all S tokens into ``cache`` and
+    attends through the flash kernel; a recurrent layer's state is the
+    chunk scan's (the whole S must be real tokens).  ``length``: optional
+    (B,) true prompt lengths of a right-padded batch (pad entries are
+    causally invisible; attention patterns only).  Returns (last-position
+    logits (B, V) f32, cache)."""
     b, s = tokens.shape
     if length is not None:
         if not supports_fused_prefill(cfg):
@@ -197,9 +344,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
                 f"right-padded prefill bucket {s} exceeds the cache ring "
                 f"{ring}; cap the pad bucket at the attention window")
     h = L.embed(params["embed"], tokens, cfg)
-    positions = torch.arange(s, device=tokens.device)
-    for i, p in enumerate(params["layers"]):
-        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], 0, None)
+    h = _layers(params, h, torch.arange(s, device=tokens.device), cfg, cache, 0, None)
     h = L.apply_norm(params["final_norm"], h, cfg)
     if length is None:
         h_last = h[:, -1]
@@ -211,9 +356,10 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when the paged KV-cache engine can serve this config: pure
-    dense attention blocks with full (no sliding-window) attention."""
+    attention patterns (pages hold K/V lines; recurrent state has no
+    per-position layout to page) with full (no sliding-window) attention."""
     return (not cfg.enc_dec and cfg.window is None
-            and all(k == "attn" for k in cfg.block_pattern))
+            and all(k in ATTN_KINDS for k in cfg.block_pattern))
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block: int, *,
@@ -242,9 +388,8 @@ def prefill_paged(params: Params, tokens: torch.Tensor, cache: Cache,
     token (1, V) f32, cache)."""
     b, s = tokens.shape
     h = L.embed(params["embed"], tokens, cfg)
-    positions = pos0 + torch.arange(s, device=tokens.device)
-    for i, p in enumerate(params["layers"]):
-        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], pos0, block_tables)
+    h = _layers(params, h, pos0 + torch.arange(s, device=tokens.device), cfg, cache, pos0,
+                block_tables)
     h = L.apply_norm(params["final_norm"], h, cfg)
     last = (length if length is not None else s) - 1
     return L.logits(params["embed"], h[:, last:last + 1], cfg)[:, 0], cache
@@ -256,15 +401,13 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     """One decode step.  token (B,) int; pos: a scalar absolute position,
     or a (B,) tensor of per-row positions (continuous-batching slots advance
     independently).  Without ``block_tables`` the cache is the end-aligned
-    rows (SWA: a ring, written at ``pos % window``); ``block_tables`` (B, P):
-    the paged cache, each row addressing its own page chain.  Returns
-    (logits (B, V) f32, cache)."""
-    _check_kinds(cfg)
+    rows (SWA: a ring, written at ``pos % window``) and the recurrent
+    state; ``block_tables`` (B, P): the paged cache, each row addressing
+    its own page chain.  Returns (logits (B, V) f32, cache)."""
     pos = torch.as_tensor(pos, device=token.device)
     h = L.embed(params["embed"], token[:, None], cfg)          # (B, 1, d)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     cache_pos = pos if cfg.window is None else pos % cfg.window
-    for i, p in enumerate(params["layers"]):
-        h, cache[i] = _block_apply(p, h, positions, cfg, cache[i], cache_pos, block_tables)
+    h = _layers(params, h, positions, cfg, cache, cache_pos, block_tables)
     h = L.apply_norm(params["final_norm"], h, cfg)
     return L.logits(params["embed"], h, cfg)[:, 0], cache

@@ -30,6 +30,7 @@ from repro_torch import optim
 from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig, torch_dtype
 from repro_torch.core.dseq import reduce_sum
 from repro_torch.core.mesh import local_block
+from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import MeshCtx
@@ -111,22 +112,25 @@ def _cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: fl
 def make_loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
                  ctx: Optional[MeshCtx] = None) -> Callable:
     """``loss_fn(params, batch) -> (loss, {"loss", "aux"})``: next-token CE
-    over ``batch["tokens"]`` plus ``1e-2 * aux``.  The dense families have
-    no auxiliary loss: ``aux`` is an f32 0, reported as JAX reports it.
+    over ``batch["tokens"]`` plus ``1e-2 * aux``, the MoE layers'
+    load-balance loss (an f32 0 for the other families, reported as JAX
+    reports it).  An enc-dec model reads ``batch["frames"]`` (B, T, d) too.
 
     Under a ctx: this rank's rows and blocks; the CE is vocab-parallel
     when the logits are split over ``model`` (the reference constrains them
     to ``P(batch, None, 'model')``), each rank's token sum is divided by the
     global token count and ``reduceD("sum")``'d over the batch axes, so
     every rank holds the global token mean, as in JAX."""
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec training is not ported (ROADMAP queue 1, item 6)")
     vaxis = L.vocab_axis(cfg, ctx)
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
-        logits = T.forward(params, tokens, cfg, ctx=ctx, remat=pcfg.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        if cfg.enc_dec:
+            logits, aux = E.forward(params, batch["frames"], tokens, cfg, remat=pcfg.remat,
+                                    ctx=ctx)
+        else:
+            logits, aux = T.forward(params, tokens, cfg, ctx=ctx, remat=pcfg.remat,
+                                    return_aux=True)
         if ctx is None:
             loss = cross_entropy(logits[:, :-1], tokens[:, 1:], z_loss=tcfg.z_loss,
                                  chunk=pcfg.logit_chunk)
@@ -261,6 +265,10 @@ def _make_mesh_step(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
     gets a zero gradient and is reduced like the others), the reduction's
     and the update's."""
     mesh = ctx.mesh
+    if cfg.enc_dec:
+        raise NotImplementedError("enc-dec training under a mesh ctx is not ported "
+                                  "(ROADMAP queue 1, item 6)")
+    T.refuse_recurrent_ctx(cfg, ctx)
     meta = T.init(cfg, None)
     pspec_tree = param_specs(meta, cfg, ctx)
     sspec_tree = scatter_specs(meta, cfg, ctx) if zero else pspec_tree
@@ -313,12 +321,13 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     the single-rank order, and each leaf is cut to its block as soon as it
     is drawn, so a rank never holds the whole tree; assembled, the blocks
     are the single-rank state, leaf for leaf."""
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec training is not ported (ROADMAP queue 1, item 6)")
     if ctx is None:
-        params = T.init(cfg, generator)
+        params = (E.init if cfg.enc_dec else T.init)(cfg, generator)
         opt_params = params
     else:
+        if cfg.enc_dec:
+            raise NotImplementedError("enc-dec training under a mesh ctx is not ported "
+                                      "(ROADMAP queue 1, item 6)")
         specs = train_state_shardings(cfg, pcfg, ctx, abstract_train_state(cfg, pcfg))
         by_path = dict(leaves_with_path(specs["params"]))
         params = T.init(cfg, generator, shard=lambda path, leaf: local_block(
@@ -363,13 +372,19 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Fused prefill ``(params, batch, cache) -> (last_logits (B, V),
     cache)``: one cache-writing full-sequence forward per prompt.  ``batch``
     holds ``tokens`` (B, S) and may hold ``length``, the per-row true prompt
-    lengths of right-padded prompts (pad entries are causally invisible)."""
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec prefill is not ported (ROADMAP, port queue)")
+    lengths of right-padded prompts (pad entries are causally invisible).
+    An enc-dec model encodes ``batch["frames"]`` first and returns
+    ``(last_logits, cache, encoder output)``: the decode steps need it."""
 
     @torch.no_grad()
     def prefill(params, batch, cache):
-        return T.prefill(params, batch["tokens"], cache, cfg, length=batch.get("length"))
+        length = batch.get("length")
+        if cfg.enc_dec:
+            enc = E.encode(params, batch["frames"], cfg)
+            logits, cache = E.decode_prefill(params, batch["tokens"], enc, cache, cfg,
+                                             length=length)
+            return logits, cache, enc
+        return T.prefill(params, batch["tokens"], cache, cfg, length=length)
 
     return prefill
 
@@ -380,9 +395,10 @@ def make_decode_step(cfg: ModelConfig, *, return_logits: bool = False,
     ``return_logits`` so the scheduler can sample.  ``paged`` selects the
     step's form: ``(params, tok, cache, pos, block_tables)`` over the shared
     page arena, or, with ``paged=False``, the end-aligned ``(params, tok,
-    cache, pos)`` over per-slot cache rows."""
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec decode is not ported (ROADMAP, port queue)")
+    cache, pos)`` over per-slot cache rows; an enc-dec model's step takes
+    the encoder output after ``pos``."""
+    if paged and cfg.enc_dec:
+        raise NotImplementedError("paged decode is decoder-only")
 
     def _out(logit):
         if return_logits:
@@ -390,8 +406,11 @@ def make_decode_step(cfg: ModelConfig, *, return_logits: bool = False,
         return torch.argmax(logit, dim=-1).to(torch.int32)
 
     @torch.no_grad()
-    def decode(params, token, cache, pos):
-        logit, cache = T.decode_step(params, token, cache, pos, cfg)
+    def decode(params, token, cache, pos, enc_out=None):
+        if cfg.enc_dec:
+            logit, cache = E.decode_step(params, token, cache, pos, enc_out, cfg)
+        else:
+            logit, cache = T.decode_step(params, token, cache, pos, cfg)
         return _out(logit), cache
 
     @torch.no_grad()

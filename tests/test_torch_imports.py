@@ -70,3 +70,16 @@ def test_mesh_trainer_loads_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_model_families_load_no_jax():
+    """The MoE, Mamba2, xLSTM and enc-dec modules and the serve / train
+    launchers that reach them load neither JAX nor the reference package."""
+    code = ("import sys, repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm, repro_torch.models.encdec, repro_torch.convert, "
+            "repro_torch.launch.train, repro_torch.launch.serve; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

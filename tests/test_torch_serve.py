@@ -148,15 +148,28 @@ def test_submit_validates_with_named_limits(tiny):
 
 
 def test_unported_engine_raises_naming_the_roadmap(tiny):
-    """The end-aligned engine is ported; its recurrent per-token prefill
-    fallback (and the recurrent families) is not."""
+    """The end-aligned engine is ported with its recurrent per-token prefill
+    fallback (``test_torch_families.py``); the recurrent blocks under a mesh
+    ctx, and the serve engine's cache under one, are not."""
+    from repro_torch.config import ParallelConfig as PortParallelConfig
+    from repro_torch.config import SSMConfig
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    from repro_torch.parallel.sharding import make_ctx
     _, cfg, _, params = tiny
-    recurrent = cfg.replace(block_pattern=("mamba2",))
+    recurrent = cfg.replace(block_pattern=("mamba2",), ssm=SSMConfig(d_state=8, head_dim=16))
+    assert not Scheduler(recurrent, params, slots=1, max_len=8).fused
+    ctx = make_ctx(AbstractMesh((1, 2), ("data", "model")),
+                   PortParallelConfig(fsdp_params=False))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(recurrent, params, slots=1, max_len=8)
+        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), recurrent, ctx=ctx)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.decode_step(params, torch.zeros(1, dtype=torch.int32), [],
-                      torch.zeros(1, dtype=torch.int32), recurrent)
+        ssm.mamba2_block({}, torch.zeros(1, 4, cfg.d_model), recurrent, ctx=ctx)
+    cache = T.init_cache(cfg, 1, 8, device="cpu")[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L.attention(params["layers"][0]["attn"], torch.zeros(1, 1, cfg.d_model),
+                    torch.arange(1), cfg, cache=cache, cache_pos=0, ctx=ctx)
 
 
 def test_sampling_is_seeded_and_top_p_narrows_to_greedy():

@@ -91,9 +91,20 @@ def test_registry_shapes_and_defaults_equal_to_jax():
 
 
 def test_non_attn_families_still_raise():
+    """The other families build and train on one process
+    (``test_torch_families.py``); under a mesh ctx the recurrent kinds and
+    the enc-dec model still raise, before any collective (ROADMAP queue 1,
+    item 6)."""
+    from repro_torch.core.mesh import AbstractMesh
+    from repro_torch.parallel.sharding import make_ctx
+    ctx = make_ctx(AbstractMesh((1, 2), ("data", "model")), ParallelConfig(fsdp_params=False))
     for arch in ("xlstm-1.3b", "zamba2-1.2b", "whisper-base", "mixtral-8x22b"):
-        with pytest.raises(NotImplementedError):
-            T.init(configs.reduced(configs.get(arch)), torch.Generator().manual_seed(0))
+        cfg = configs.reduced(configs.get(arch))
+        T.init(cfg, torch.Generator().manual_seed(0))
+        if arch == "mixtral-8x22b":
+            continue                  # MoE on a mesh: test_torch_moe_mesh.py
+        with pytest.raises(NotImplementedError, match="item 6"):
+            S.make_train_step(cfg, ParallelConfig(fsdp_params=False), TrainConfig(), ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,109 @@
+"""The port's mLSTM and sLSTM blocks against the JAX package's
+(``repro.models.xlstm``), on the same numpy inputs and JAX-initialised
+parameters carried over through ``repro_torch.convert``: the full-sequence
+forward, a fused prefill into a seeded cache and decode steps.  Tolerance
+1e-4 (f32; the packages differ in summation order only), 2e-2 in bf16.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import config as jconfig
+from repro.models import xlstm as JX
+from repro_torch import config
+from repro_torch.convert import params_from_jax
+from repro_torch.models import xlstm as X
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+KW = dict(name="x", family="ssm", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=0,
+          vocab=64, block_pattern=("mlstm", "slstm"), norm="layernorm")
+XL = dict(proj_factor=2.0, chunk=4)
+
+
+def _cfgs(dtype):
+    return (jconfig.ModelConfig(**KW, dtype=dtype, xlstm=jconfig.XLSTMConfig(**XL)),
+            config.ModelConfig(**KW, dtype=dtype, xlstm=config.XLSTMConfig(**XL)))
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def blocks(request):
+    dtype = request.param
+    jcfg, cfg = _cfgs(dtype)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    jp = {"mlstm": JX.mlstm_init(k1, jcfg), "slstm": JX.slstm_init(k2, jcfg)}
+    tree = {"layers": tuple({kind: jax.tree.map(lambda a: np.asarray(a)[None], jp[kind])}
+                            for kind in ("mlstm", "slstm")), "embed": {}, "final_norm": {}}
+    layers = params_from_jax(tree, cfg, device="cpu")["layers"]
+    return dtype, jcfg, cfg, jp, {"mlstm": layers[0]["mlstm"], "slstm": layers[1]["slstm"]}
+
+
+def _x(b, s, seed, dtype):
+    x = np.random.RandomState(seed).randn(b, s, 32).astype(np.float32)
+    return jnp.asarray(x, dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_forward_matches_jax(blocks, kind):
+    dtype, jcfg, cfg, jp, p = blocks
+    jx, x = _x(2, 8, 1, dtype)
+    jfn, fn = (JX.mlstm_block, X.mlstm_block) if kind == "mlstm" else \
+        (JX.slstm_block, X.slstm_block)
+    want, _ = jfn(jp[kind], jx, jcfg)
+    got, none = fn(p[kind], x, cfg)
+    assert none is None and got.dtype == getattr(torch, dtype)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_prefill_then_decode_matches_jax(blocks, kind):
+    """A prefill of 8 tokens from the initial state, then two decode steps:
+    outputs and state as JAX's (sLSTM: m starts at -1e30)."""
+    dtype, jcfg, cfg, jp, p = blocks
+    if kind == "mlstm":
+        jfn, fn = JX.mlstm_block, X.mlstm_block
+        jc = {"ssm": jnp.zeros((2, 2, 32, 33), jnp.float32)}
+        c = X.mlstm_init_cache(2, cfg, "cpu")
+    else:
+        jfn, fn = JX.slstm_block, X.slstm_block
+        jc, c = JX.slstm_init_cache(2, jcfg), X.slstm_init_cache(2, cfg, "cpu")
+    assert {k: tuple(v.shape) for k, v in c.items()} == {k: v.shape for k, v in jc.items()}
+    for s, seed in ((8, 2), (1, 3), (1, 4)):
+        jx, x = _x(2, s, seed, dtype)
+        want, jc = jfn(jp[kind], jx, jcfg, cache=jc)
+        got, c = fn(p[kind], x, cfg, cache=c)
+        _close(got, want, dtype)
+        for key in jc:
+            assert c[key].dtype == torch.float32
+            _close(c[key], jc[key], dtype)
+
+
+def test_slstm_cache_starts_at_the_stabiliser_floor():
+    _, cfg = _cfgs("float32")
+    c = X.slstm_init_cache(3, cfg, "cpu")
+    assert torch.all(c["m"] == -1e30) and not c["c"].any() and not c["n"].any()
+
+
+def test_mlstm_normaliser_channel_bounds_the_output(blocks):
+    """h = num / max(|den|, 1): with v' = [v, 1] the state's last channel is
+    the normaliser, and the output before the projections stays bounded by
+    the values' scale."""
+    dtype, _, cfg, _, p = blocks
+    x = torch.randn(1, 8, 32, generator=torch.Generator().manual_seed(5)).to(
+        getattr(torch, dtype)) * 50
+    got, _ = X.mlstm_block(p["mlstm"], x, cfg)
+    assert torch.isfinite(got.float()).all()
+
+
+def test_xlstm_under_a_ctx_raises(blocks):
+    _, _, cfg, _, p = blocks
+    for fn, kind in ((X.mlstm_block, "mlstm"), (X.slstm_block, "slstm")):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+            fn(p[kind], torch.zeros(1, 4, 32), cfg, ctx=object())
