@@ -173,11 +173,52 @@ the kernels' launch counts just before its run and reads them just after):
                  atol 2e-3), with each rank's wall, bytes staged and peak
                  memory.
 
+Then serving under a mesh ctx, on gloo ranks sharing ``cuda:0`` (every rank
+with its parameter and cache blocks; counts set to 0 just before each
+served run and read just after, in the rank):
+
+  serve ranks -- full-width, full-depth Llama-3.2-3B in bf16 on 2 ranks,
+                 mesh (1, 2), through ``Scheduler(ctx=)``: 4 requests of
+                 512 + 64 tokens, 4 slots, stagger 2, end-aligned (the
+                 fused prefill's S/2 rows a rank through the tensor-core
+                 flash kernel: launches a rank = non-empty admissions x 28)
+                 and paged (block 16, chunk 256: paged launches a rank =
+                 decode steps x 28); tok/s, TTFT p50, each rank's peak
+                 memory, bytes staged and seconds inside collectives; the
+                 ranks' tokens equal and beside the one-process engine's
+                 (first position that differs, not gated); each rank's
+                 flash kernel against its plain version on the inputs its
+                 served prefills gave it (bf16 2e-2); request 0
+                 teacher-forced through the ranks' fused prefill and
+                 end-aligned decode (and chunked prefill and paged decode)
+                 in f32 arithmetic on the bf16 weights against the
+                 one-process ``forward`` (relative RMS 1e-3), and in bf16
+                 as served against the one-process bf16 path (5e-2);
+  serve ranks families -- Zamba2-1.2B (depth 7, 64 heads split over mesh
+                 (1, 2)), Mixtral-8x22B (depth 2, EP over (1, 2), a
+                 capacity no assignment overflows) and Whisper-base (mesh
+                 (1, 2), 16 greedy tokens, flash launches a rank 12) on
+                 the same launch, then xLSTM-1.3B (depth 8) on 8 ranks,
+                 mesh (1, 8), its mLSTM engine split on dk with the partial
+                 sums over ``model`` every chunk; each served through the
+                 scheduler, and a teacher-forced path in f32 arithmetic
+                 against one process's same path (relative RMS 1e-3,
+                 Mixtral's routing flips printed); Whisper's bf16 logits
+                 against the one-process ``encdec.forward`` (5e-2); the
+                 flash kernel of Mixtral's and Whisper's ranks against its
+                 plain version on their served inputs;
+  train families ranks -- the reduced Zamba2, xLSTM and Whisper configs in
+                 f32 on 4 ranks, mesh (2, 2): the loss and every gradient
+                 leaf at the initial state, then 2 steps, against one
+                 process on the card (loss 1e-5, leaves and step losses
+                 1e-4, the first step's grad norm 1e-5).
+
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  TF32 is off for every f32 product.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -755,7 +796,7 @@ def phase_serve_aligned(cfg, params, paged_comps):
           f"(wgmma) launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"greedy tokens equal to the paged engine's at {same} of {N_REQ * GEN} positions "
           f"({same / (N_REQ * GEN):.3f}, not gated)", flush=True)
-    return comps[0], launches
+    return comps, launches
 
 
 def phase_oracle_aligned(cfg, params, comp) -> None:
@@ -2495,6 +2536,658 @@ def phase_moe_ranks() -> None:
 
 
 # ---------------------------------------------------------------------------
+# serving under a mesh ctx: the gloo ranks of ``core.mesh.launch`` sharing
+# ``cuda:0``, each with its parameter blocks and its cache blocks
+RANK_REQ, RANK_SLOTS = 4, 4                     # 4 requests of PROMPT + GEN, stagger 2
+RANK_ORACLE_GEN = 16                            # decode steps teacher-forced in the oracle
+# family -> (depth, model ranks, requests, prompt, gen, oracle prompt, oracle gen)
+RANK_FAMILIES = {"zamba2-1.2b": (7, 2, 2, 64, 16, 64, 16),
+                 "xlstm-1.3b": (8, 8, 2, 16, 8, 512, 16),
+                 "mixtral-8x22b": (2, 2, 2, PROMPT, 16, PROMPT, 16)}
+WHISPER_RANK_GEN = 16
+TRAIN_RANK_ARCHS = ("zamba2-1.2b", "xlstm-1.3b", "whisper-base")
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else 0
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _rank_setup(cfg, model: int, dev, seed: int = 0):
+    """This rank's mesh (world / model, model), ctx and parameter blocks: the
+    bf16 matrices of ``_family_init``'s seeded draw, each leaf cut to its
+    block as soon as its group is drawn."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.core.mesh import local_block
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import make_ctx, param_specs
+    from repro_torch.tree import leaves_with_path
+    mesh = make_local_mesh(model)
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    init = E.init if cfg.enc_dec else T.init
+    specs = dict(leaves_with_path(param_specs(init(cfg, None), cfg, ctx)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init(cfg, gen, dtype=torch.bfloat16,
+                  shard=lambda path, leaf: local_block(leaf, specs[path], mesh).clone())
+    _sync(dev)
+    return mesh, ctx, params
+
+
+@contextlib.contextmanager
+def _served_flash_inputs():
+    """Inside a rank: ``models.layers._flash`` wrapped so that a copy of the
+    first inputs of each shape the served path gives the flash kernel is
+    kept (the kernel still runs on the originals); yields the dict of
+    copies, keyed by (q shape, k shape, causal, window)."""
+    from repro_torch.models import layers as L
+    seen, plain = {}, L._flash
+
+    def keep(q, k, v, *, causal, window):
+        key = (tuple(q.shape), tuple(k.shape), causal, window)
+        if key not in seen:
+            seen[key] = (q.clone(), k.clone(), v.clone())
+        return plain(q, k, v, causal=causal, window=window)
+
+    L._flash = keep
+    try:
+        yield seen
+    finally:
+        L._flash = plain
+
+
+def _flash_checks(seen: dict) -> list:
+    """The flash kernel against its plain version on each kept input, in
+    the (B, H, L, hd) views ``layers._flash`` passes: (label, max |kernel -
+    plain|).  Run after the served run's counts were read."""
+    from repro_torch.kernels import flash_attention as fa
+    out = []
+    for (_, _, causal, window), (q, k, v) in seen.items():
+        b, lq, hkv, rep, hd = q.shape
+        args = (q.reshape(b, lq, hkv * rep, hd).transpose(1, 2), k.transpose(1, 2),
+                v.transpose(1, 2))
+        got = fa.flash_attention(*args, causal=causal, window=window).float()
+        want = fa.flash_attention_ref(*args, causal=causal, window=window).float()
+        out.append((f"{str(q.dtype).split('.')[-1]} q {tuple(args[0].shape)} against k "
+                    f"{tuple(args[1].shape)}, {'causal' if causal else 'non-causal'}"
+                    + (f", window {window}" if window else ""),
+                    (got - want).abs().max().item()))
+    return out
+
+
+def _rank_serve(tag, cfg, params, ctx, reqs, **kw) -> dict:
+    """A warmup run, then ``reqs`` through ``Scheduler(ctx=)``, the kernels'
+    counts set to 0 just before and read just after; this rank's stats, and
+    the flash kernel held against its plain version on the inputs the
+    served run gave it."""
+    from repro_torch.launch.scheduler import Scheduler, make_requests
+    mesh = ctx.mesh
+    sched = Scheduler(cfg, params, ctx=ctx, **kw)
+    sched.run(make_requests(2, 16, 2, cfg.vocab))
+    sched.reset()
+    _sync(sched.device)
+    if sched.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    staged, comm = mesh.staged_bytes, mesh.comm_seconds
+    _zero_counts()
+    with _served_flash_inputs() as seen:
+        out = sched.run(reqs)
+    counts = _family_counts()
+    ttft = sorted(c.ttft_s for c in out["completions"].values())
+    return {"tokens": {r: c.tokens for r, c in out["completions"].items()},
+            "counts": counts, "tok_s": out["tok_s"], "wall_s": out["wall_s"],
+            "ttft_p50": ttft[len(ttft) // 2], "decode_steps": out["decode_steps"],
+            "prefills": out["prefills"], "generated": out["generated"],
+            "peak": _peak(sched.device), "staged": mesh.staged_bytes - staged,
+            "comm_s": mesh.comm_seconds - comm, "flash_checks": _flash_checks(seen)}
+
+
+def _rank_path(cfg, params, ctx, seq: np.ndarray, prompt: int, gen: int, dev, paged=False,
+               f32=True):
+    """The teacher-forced serve path under ``ctx`` in f32 arithmetic on the
+    served bf16 weights (f32 cache), or (``f32=False``) as served, in bf16:
+    a fused (or chunked) prefill of the first ``prompt`` tokens of ``seq``
+    and ``gen`` - 1 decode steps; the logits (gen, V), global on every
+    rank."""
+    from repro_torch.launch.specs import restrict_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+    from repro_torch.serving import BlockPool
+    cfg32 = cfg.replace(dtype="float32") if f32 else cfg
+    cdt = torch.float32 if f32 else torch.bfloat16
+    one = restrict_batch(ctx, 1)
+    toks = torch.from_numpy(seq.astype(np.int32)).to(dev)[None]
+    with torch.no_grad():
+        if paged:
+            n_pages = -(-(prompt + gen) // BLOCK)
+            pool = BlockPool(n_pages, BLOCK)
+            pool.admit(0, prompt + gen)
+            cache = T.init_paged_cache(cfg32, n_pages, BLOCK, device=dev, dtype=cdt)
+            step = S.make_chunk_prefill_step(cfg32, one)
+            for lo in range(0, prompt, CHUNK):
+                ln = min(CHUNK, prompt - lo)
+                pool.ensure(0, lo + ln)
+                chunk = torch.zeros((1, CHUNK), dtype=torch.int32, device=dev)
+                chunk[0, :ln] = toks[0, lo:lo + ln]
+                table = torch.from_numpy(pool.table(0, n_pages)[None]).to(dev)
+                logits, cache = step(params, chunk, cache, lo, table, ln)
+            decode = S.make_decode_step(cfg32, return_logits=True, paged=True, ctx=one)
+        else:
+            cache = T.init_cache(cfg32, 1, prompt + gen, device=dev, dtype=cdt, ctx=one)
+            logits, cache = S.make_prefill_step(cfg32, one)(params, {"tokens": toks[:, :prompt]},
+                                                           cache)
+            decode = S.make_decode_step(cfg32, return_logits=True, ctx=one)
+        got = [logits[0]]
+        for i in range(gen - 1):
+            pos = prompt + i
+            args = (params, toks[0, pos:pos + 1], cache,
+                    torch.tensor([pos], dtype=torch.int32, device=dev))
+            if paged:
+                pool.ensure(0, pos + 1)
+                args += (torch.from_numpy(pool.table(0, n_pages)[None]).to(dev),)
+            logits, cache = decode(*args)
+            got.append(logits[0])
+    return torch.stack(got).float().cpu()
+
+
+def _one_process_path(cfg, params, seq: np.ndarray, prompt: int, gen: int,
+                      dev="cuda", f32=True) -> torch.Tensor:
+    """``_rank_path`` on one process (no ctx): the families' reference, and
+    the reference of the ranks' bf16 path."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import steps as S
+    cfg32 = cfg.replace(dtype="float32") if f32 else cfg
+    toks = torch.from_numpy(seq.astype(np.int32)).to(dev)[None]
+    with torch.no_grad():
+        cache = T.init_cache(cfg32, 1, prompt + gen, device=dev,
+                             dtype=torch.float32 if f32 else torch.bfloat16)
+        logits, cache = S.make_prefill_step(cfg32)(params, {"tokens": toks[:, :prompt]}, cache)
+        decode = S.make_decode_step(cfg32, return_logits=True)
+        got = [logits[0]]
+        for i in range(gen - 1):
+            pos = prompt + i
+            logits, cache = decode(params, toks[0, pos:pos + 1], cache,
+                                   torch.tensor([pos], dtype=torch.int32, device=dev))
+            got.append(logits[0])
+    return torch.stack(got).float().cpu()
+
+
+def _oracle_seq(cfg, n: int, seed: int) -> np.ndarray:
+    from repro_torch.launch.scheduler import make_requests
+    return np.asarray(make_requests(1, n, 1, cfg.vocab, seed=seed)[0].prompt)
+
+
+def rank_serve(device, cfgs: dict) -> dict:
+    """One of the 2 ranks (mesh (1, 2)) of the "serve ranks" phases:
+    full-width, full-depth Llama-3.2-3B through ``Scheduler(ctx=)``,
+    end-aligned and paged, then its f32 oracle path; then Zamba2-1.2B (depth
+    7), Mixtral-8x22B (depth 2, EP) and Whisper-base, each model's memory
+    freed before the next.  ``cfgs``: arch -> the config served."""
+    from repro_torch.launch.scheduler import make_requests
+    from repro_torch.models import moe as M
+    out = {}
+    dev = str(device)
+    cfg = cfgs[ARCH]
+    mesh, ctx, params = _rank_setup(cfg, 2, dev)
+    reqs = make_requests(RANK_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
+    out["aligned"] = _rank_serve("aligned", cfg, params, ctx, reqs, slots=RANK_SLOTS,
+                                 max_len=PROMPT + GEN, bucket=BUCKET)
+    out["paged"] = _rank_serve("paged", cfg, params, ctx, reqs, slots=RANK_SLOTS,
+                               max_len=PROMPT + GEN, paged=True, block=BLOCK, chunk=CHUNK)
+    comp = out["aligned"]["tokens"][0]
+    seq = np.concatenate([np.asarray(reqs[0].prompt),
+                          np.asarray(comp[:RANK_ORACLE_GEN - 1], np.int32)])
+    out["oracle_seq"] = seq
+    out["oracle"] = _rank_path(cfg, params, ctx, seq, PROMPT, RANK_ORACLE_GEN, dev)
+    out["oracle_paged"] = _rank_path(cfg, params, ctx, seq, PROMPT, RANK_ORACLE_GEN, dev,
+                                     paged=True)
+    out["served_bf16"] = _rank_path(cfg, params, ctx, seq, PROMPT, RANK_ORACLE_GEN, dev,
+                                    f32=False)
+    del params
+    _sync(dev)
+    for arch in ("zamba2-1.2b", "mixtral-8x22b"):
+        depth, model, n_req, prompt, gen, oprompt, ogen = RANK_FAMILIES[arch]
+        cfg = cfgs[arch]
+        _, fctx, params = _rank_setup(cfg, model, dev)
+        reqs = make_requests(n_req, prompt, gen, cfg.vocab, stagger=STAGGER)
+        out[arch] = _rank_serve(arch, cfg, params, fctx, reqs, slots=n_req,
+                                max_len=prompt + gen, bucket=BUCKET)
+        seq = _oracle_seq(cfg, oprompt + ogen - 1, 5)
+        M.routes = [] if cfg.moe else None
+        try:
+            out[arch]["oracle"] = _rank_path(cfg, params, fctx, seq, oprompt, ogen, dev)
+            out[arch]["routes"] = [r.cpu() for r in M.routes] if cfg.moe else None
+        finally:
+            M.routes = None
+        del params
+        _sync(dev)
+    out["whisper-base"] = _rank_whisper(cfgs["whisper-base"], dev)
+    return out
+
+
+def _whisper_inputs(cfg, dev="cuda"):
+    from repro_torch.launch.scheduler import make_requests
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.randn((1, WHISPER_FRAMES, cfg.d_model), generator=g, device=dev)
+    prompt = torch.from_numpy(np.asarray(make_requests(1, WHISPER_PROMPT, 1, cfg.vocab)[0]
+                                         .prompt)).to(dev)[None]
+    return frames, prompt
+
+
+def _whisper_serve(cfg, params, ctx, frames, prompt, dev="cuda"):
+    """``make_prefill_step`` and greedy ``make_decode_step``s under ``ctx``
+    (None: one process): the logits (WHISPER_RANK_GEN, V) and tokens."""
+    from repro_torch.launch.specs import restrict_batch
+    from repro_torch.models import encdec as E
+    from repro_torch.parallel import steps as S
+    one = restrict_batch(ctx, 1) if ctx is not None else None
+    prefill = S.make_prefill_step(cfg, one)
+    decode = S.make_decode_step(cfg, return_logits=True, ctx=one)
+    cache = E.init_cache(cfg, 1, WHISPER_PROMPT + WHISPER_RANK_GEN, device=dev, ctx=one)
+    logits, cache, enc = prefill(params, {"tokens": prompt, "frames": frames}, cache)
+    got, toks = [logits[0]], [int(torch.argmax(logits[0]))]
+    for i in range(WHISPER_RANK_GEN - 1):
+        tok = torch.tensor(toks[-1:], dtype=torch.int32, device=dev)
+        logits, cache = decode(params, tok, cache,
+                               torch.tensor(WHISPER_PROMPT + i, device=dev), enc)
+        got.append(logits[0])
+        toks.append(int(torch.argmax(logits[0])))
+    return torch.stack(got), toks
+
+
+def _rank_whisper(cfg, dev) -> dict:
+    _, wctx, params = _rank_setup(cfg, 2, dev)
+    frames, prompt = _whisper_inputs(cfg, dev)
+    mesh = wctx.mesh
+    _whisper_serve(cfg, params, wctx, frames, prompt, dev)         # warmup
+    _sync(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    staged, comm = mesh.staged_bytes, mesh.comm_seconds
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _served_flash_inputs() as seen:
+        got, toks = _whisper_serve(cfg, params, wctx, frames, prompt, dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = _family_counts()
+    return {"logits": got.float().cpu(), "tokens": toks, "counts": counts,
+            "wall_s": wall, "peak": _peak(dev),
+            "staged": mesh.staged_bytes - staged, "comm_s": mesh.comm_seconds - comm,
+            "flash_checks": _flash_checks(seen)}
+
+
+def rank_xlstm(device, cfg) -> dict:
+    """One of the 8 ranks (mesh (1, 8)) of xLSTM-1.3B (depth 8): 4 heads do
+    not split 8 ways, so the mLSTM engine splits dk (1024 / 8) and sums its
+    partial scores over ``model`` every chunk."""
+    from repro_torch.launch.scheduler import make_requests
+    arch = "xlstm-1.3b"
+    depth, model, n_req, prompt, gen, oprompt, ogen = RANK_FAMILIES[arch]
+    dev = str(device)
+    _, ctx, params = _rank_setup(cfg, model, dev)
+    reqs = make_requests(n_req, prompt, gen, cfg.vocab, stagger=STAGGER)
+    out = _rank_serve(arch, cfg, params, ctx, reqs, slots=n_req, max_len=prompt + gen,
+                      bucket=BUCKET)
+    out["oracle"] = _rank_path(cfg, params, ctx, _oracle_seq(cfg, oprompt + ogen - 1, 5), oprompt,
+                               ogen, dev)
+    return out
+
+
+def rank_cfgs() -> dict:
+    """The configs the rank phases serve: Llama-3.2-3B whole, the families
+    at the depth of ``RANK_FAMILIES``, Whisper-base whole."""
+    from repro_torch import configs
+    out = {a: configs.get(a) for a in (ARCH, "whisper-base")}
+    out.update({a: configs.get(a).replace(n_layers=v[0]) for a, v in RANK_FAMILIES.items()})
+    return dict(out, **{"mixtral-8x22b": _dropless(out["mixtral-8x22b"], 2)})
+
+
+def _dropless(cfg, ep: int):
+    """``cfg`` with a capacity factor of ``ep``: the EP layout's capacity
+    ``min(ceil(T k / ep * cf), T k)`` is then T k, so no assignment drops and
+    the layer computes what the dropless one-process layer computes (as
+    ``phase_moe_ranks`` has it)."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=float(ep)))
+
+
+def _init_on(cfg, dev):
+    """The one-process model: the same seeded bf16 draw as ``_rank_setup``."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    return (E.init if cfg.enc_dec else T.init)(cfg, torch.Generator(device=dev).manual_seed(0),
+                                               dtype=torch.bfloat16)
+
+
+def _rel_rms(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def _by_rank(runs: list, key: str, scale: float = 1.0, digits: int = 3) -> str:
+    return ", ".join(f"{r[key] / scale:.{digits}f}" for r in runs)
+
+
+def _print_rank_serve(tag: str, cfg, runs: list, extra: str = "") -> None:
+    r0 = runs[0]
+    print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers, {len(runs)} ranks: "
+          f"{r0['generated']} tokens in {r0['wall_s']:.3f} s = {r0['tok_s']:.1f} tok/s; TTFT p50 "
+          f"{r0['ttft_p50'] * 1e3:.1f} ms; {r0['decode_steps']} decode steps, {r0['prefills']} "
+          f"prefills; launches by rank {[r['counts'] for r in runs]}; peak memory by rank "
+          f"{_by_rank(runs, 'peak', 1e9, 2)} GB; staged through the host by rank "
+          f"{_by_rank(runs, 'staged', 1e9)} GB; inside the collectives by rank "
+          f"{_by_rank(runs, 'comm_s', 1.0, 2)} s" + extra, flush=True)
+
+
+def _check_same_tokens(tag: str, runs: list, key: str = "tokens") -> None:
+    if any(r[key] != runs[0][key] for r in runs[1:]):
+        fail(f"{tag}: the ranks' tokens differ")
+
+
+def _gate_flash_checks(tag: str, runs: list) -> None:
+    """Each rank's flash kernel against its plain version on the inputs its
+    served run gave the kernel (every shape it met); fails on a rank that
+    kept none or differs by more than the bf16 bound."""
+    tol = KERNEL_TOL[torch.bfloat16]
+    for rank, r in enumerate(runs):
+        if not r["flash_checks"]:
+            fail(f"{tag}: rank {rank} kept no flash input")
+        for label, err in r["flash_checks"]:
+            print(f"[{tag}] rank {rank}: flash_attention {label}, on the served inputs: max "
+                  f"|kernel - plain| {err:.3e} (bound {tol:g})", flush=True)
+            if not err <= tol:
+                fail(f"{tag}: rank {rank}'s flash kernel differs from its plain version by "
+                     f"{err:.3e} at {label}")
+
+
+def phase_serve_ranks(aligned_comps, cfgs: dict, dev: str = "cuda") -> dict:
+    """Full-width Llama-3.2-3B on 2 gloo ranks sharing the card (mesh (1,
+    2)): ``Scheduler(ctx=)`` end-aligned (flash launches a rank = non-empty
+    admissions x 28) and paged (paged launches a rank = decode steps x 28);
+    each rank's flash kernel against its plain version on the inputs of its
+    served prefills; request 0 teacher-forced through the ranks' fused
+    prefill and decode steps (and chunked prefill and paged decode) in f32
+    arithmetic on the bf16 weights, against the one-process ``forward``,
+    and in bf16 as served against the one-process bf16 path; then the
+    families on the same launch (``phase_serve_ranks_families`` checks
+    them)."""
+    from repro_torch.core.mesh import launch
+    from repro_torch.launch.scheduler import make_requests
+    from repro_torch.models import transformer as T
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = launch(2, rank_serve, cfgs, device=dev, timeout=1100)
+    print(f"[serve ranks] 2 ranks, launch {time.perf_counter() - t0:.1f} s (process start, "
+          f"init and every model of the phase included)", flush=True)
+    cfg = cfgs[ARCH]
+    reqs = make_requests(RANK_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
+    admissions = sum(1 for r in reqs if len(r.prompt) > 0)
+    for engine, key, want_of in (("aligned", "flash_wgmma", lambda r: admissions * cfg.n_layers),
+                                 ("paged", "paged", lambda r: r["decode_steps"] * cfg.n_layers)):
+        runs = [r[engine] for r in res]
+        _check_same_tokens(f"serve ranks {engine}", runs)
+        for rank, r in enumerate(runs):
+            if sorted(r["tokens"]) != list(range(RANK_REQ)) or any(
+                    len(t) != GEN for t in r["tokens"].values()):
+                fail(f"serve ranks {engine}: rank {rank} served {sorted(r['tokens'])}")
+            others = {k: v for k, v in r["counts"].items() if k != key}
+            if r["counts"][key] != want_of(r) or any(others.values()):
+                fail(f"serve ranks {engine}: rank {rank} launches {r['counts']}; want {key} = "
+                     f"{want_of(r)} and no other kernel")
+        diff = []
+        for rid in range(RANK_REQ):
+            a, b = runs[0]["tokens"][rid], aligned_comps[rid].tokens
+            first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            diff.append(f"{rid}: {'equal' if first is None else f'first differs at {first}'}")
+        _print_rank_serve(f"serve ranks {engine}", cfg, runs,
+                          f"; against the one-process end-aligned engine's completions "
+                          f"(not gated): {'; '.join(diff)}")
+        if engine == "aligned":
+            _gate_flash_checks(f"serve ranks {engine}", runs)
+    seq = res[0]["oracle_seq"]
+    params = _init_on(cfg, dev)
+    with torch.no_grad():
+        ref = T.forward(params, torch.from_numpy(seq.astype(np.int64)).to(dev)[None],
+                        cfg.replace(dtype="float32"))[0, PROMPT - 1:].float().cpu()
+    one_bf16 = _one_process_path(cfg, params, seq, PROMPT, RANK_ORACLE_GEN, dev, f32=False)
+    del params
+    _sync(dev)
+    rels = [_rel_rms(torch.from_numpy(r["served_bf16"]), one_bf16) for r in res]
+    print(f"[serve ranks] served_bf16: request 0 over {len(seq)} tokens, the ranks' fused "
+          f"prefill and end-aligned decode in bf16 as served vs the one-process bf16 path: max "
+          f"per-row relative RMS by rank {', '.join(f'{x:.3e}' for x in rels)} (bound "
+          f"{ORACLE_REL_RMS:g})", flush=True)
+    if max(rels) > ORACLE_REL_RMS or not all(np.isfinite(r["served_bf16"]).all() for r in res):
+        fail(f"serve ranks served_bf16: the ranks' bf16 logits differ from one process's: "
+             f"{max(rels):.3e}")
+    for key in ("oracle", "oracle_paged"):
+        for rank, r in enumerate(res):
+            got = torch.from_numpy(r[key])
+            rel = _rel_rms(got, ref)
+            if rank == 0:
+                print(f"[serve ranks] {key}: request 0 over {len(seq)} tokens, the ranks' "
+                      f"{'chunked prefill and paged' if key == 'oracle_paged' else 'fused prefill and end-aligned'}"
+                      f" decode in f32 arithmetic on the bf16 weights vs the one-process forward: "
+                      f"max per-row relative RMS {rel:.3e} (bound {ORACLE_F32_REL_RMS:g}), argmax "
+                      f"agreement {(got.argmax(-1) == ref.argmax(-1)).float().mean().item():.3f}",
+                      flush=True)
+            if not torch.isfinite(got).all() or rel > ORACLE_F32_REL_RMS:
+                fail(f"serve ranks {key}: rank {rank} logits differ from forward: {rel:.3e}")
+    return {"res": res, "flash": res[0]["aligned"]["counts"]["flash_wgmma"],
+            "paged": res[0]["paged"]["counts"]["paged"]}
+
+
+def phase_serve_ranks_families(served, cfgs: dict, dev: str = "cuda") -> None:
+    """The families on gloo ranks: Zamba2-1.2B (depth 7, its ``mamba2_attn``
+    at index 5; 64 heads split over mesh (1, 2)), Mixtral-8x22B (depth 2,
+    EP over (1, 2)) and Whisper-base (mesh (1, 2)) from ``rank_serve``'s
+    launch, then xLSTM-1.3B (depth 8) on 8 ranks, mesh (1, 8), its mLSTM
+    engine split on dk.  Each: the ranks serve the same tokens, their
+    teacher-forced path in f32 arithmetic equals the one-process path
+    (relative RMS 1e-3; Mixtral's routing flips printed); Whisper's bf16
+    logits against the one-process ``encdec.forward`` (5e-2) with flash
+    launches a rank = the encoder's 6 + the decoder prefill's 6."""
+    from repro_torch.core.mesh import launch
+    from repro_torch.models import encdec as E
+    from repro_torch.models import moe as M
+    res = served["res"]
+    t0 = time.perf_counter()
+    xres = launch(8, rank_xlstm, cfgs["xlstm-1.3b"], device=dev, timeout=900)
+    print(f"[serve ranks families] xlstm 8 ranks, launch {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for arch, runs in (("zamba2-1.2b", [r["zamba2-1.2b"] for r in res]),
+                       ("mixtral-8x22b", [r["mixtral-8x22b"] for r in res]),
+                       ("xlstm-1.3b", xres)):
+        depth, model, n_req, prompt, gen, oprompt, ogen = RANK_FAMILIES[arch]
+        cfg = cfgs[arch]
+        _check_same_tokens(f"serve ranks {arch}", runs)
+        if cfg.moe:
+            _gate_flash_checks(f"serve ranks {arch}", runs)
+        want_flash = n_req * cfg.n_layers if cfg.moe else 0
+        for rank, r in enumerate(runs):
+            if r["counts"] != {"flash_wgmma": want_flash, "flash_simt": 0, "paged": 0} or any(
+                    len(t) != gen for t in r["tokens"].values()):
+                fail(f"serve ranks {arch}: rank {rank} launches {r['counts']} (want flash "
+                     f"{want_flash}), tokens {r['tokens']}")
+        seq = _oracle_seq(cfg, oprompt + ogen - 1, 5)
+        params = _init_on(cfg, dev)
+        M.routes = [] if cfg.moe else None
+        try:
+            ref = _one_process_path(cfg, params, seq, oprompt, ogen, dev)
+            ref_routes = M.routes
+        finally:
+            M.routes = None
+        del params
+        _sync(dev)
+        flips = ""
+        if cfg.moe:
+            got_routes = [torch.from_numpy(t) for t in runs[0]["routes"]]
+            n = sum(int((torch.sort(a, -1).values != torch.sort(b.cpu(), -1).values).any(-1)
+                        .sum()) for a, b in zip(got_routes, ref_routes))
+            flips = (f"; (token, layer) top-{cfg.moe.top_k} sets that differ from one "
+                     f"process's: {n} of {sum(a.shape[0] for a in ref_routes)}")
+        rels = [_rel_rms(torch.from_numpy(r["oracle"]), ref) for r in runs]
+        _print_rank_serve(f"serve ranks {arch}", cfg, runs,
+                          f"; oracle over {len(seq)} tokens (prefill {oprompt}, {ogen} steps), "
+                          f"f32 arithmetic, the ranks' path vs one process's: max per-row "
+                          f"relative RMS by rank {', '.join(f'{x:.3e}' for x in rels)} (bound "
+                          f"{ORACLE_F32_REL_RMS:g})" + flips)
+        if max(rels) > ORACLE_F32_REL_RMS or not all(
+                np.isfinite(r["oracle"]).all() for r in runs):
+            fail(f"serve ranks {arch}: the ranks' logits differ from one process's")
+    runs = [r["whisper-base"] for r in res]
+    _check_same_tokens("serve ranks whisper", runs)
+    cfg = cfgs["whisper-base"]
+    params = _init_on(cfg, dev)
+    frames, prompt = _whisper_inputs(cfg, dev)
+    seq = torch.cat([prompt[0], torch.tensor(runs[0]["tokens"][:-1], device=dev)])[None]
+    with torch.no_grad():
+        ref = E.forward(params, frames, seq, cfg)[0][0, WHISPER_PROMPT - 1:].float().cpu()
+        one, one_toks = _whisper_serve(cfg, params, None, frames, prompt, dev)
+    del params
+    _sync(dev)
+    want = {"flash_wgmma": 2 * cfg.n_layers, "flash_simt": 0, "paged": 0}
+    rels = [_rel_rms(torch.from_numpy(r["logits"]), ref) for r in runs]
+    first = next((i for i, (a, b) in enumerate(zip(runs[0]["tokens"], one_toks)) if a != b), None)
+    print(f"[serve ranks whisper] {cfg.name} bf16, frames {tuple(frames.shape)}, "
+          f"{WHISPER_PROMPT} prompt + {WHISPER_RANK_GEN} greedy tokens on 2 ranks: "
+          f"{WHISPER_RANK_GEN / runs[0]['wall_s']:.1f} tok/s over {runs[0]['wall_s']:.3f} s; "
+          f"launches by rank {[r['counts'] for r in runs]} (want {want}); peak memory by rank "
+          f"{_by_rank(runs, 'peak', 1e9, 2)} GB; staged by rank "
+          f"{_by_rank(runs, 'staged', 1e6, 1)} MB; logits vs encdec.forward "
+          f"(bf16): max per-row relative RMS by rank {', '.join(f'{x:.3e}' for x in rels)} "
+          f"(bound {ORACLE_REL_RMS:g}); greedy tokens against one process's: "
+          f"{'equal' if first is None else f'first differ at {first}'} (not gated)", flush=True)
+    if any(r["counts"] != want for r in runs) or max(rels) > ORACLE_REL_RMS:
+        fail("serve ranks whisper: launches or logits off")
+    _gate_flash_checks("serve ranks whisper", runs)
+
+
+def rank_train_families(device, cfgs: dict, states: dict, batches: dict) -> dict:
+    """One of 4 ranks (mesh (2, 2)): for each reduced family, from
+    ``states`` (the one-process initial states) and the rank's rows of each
+    batch, the loss and every gradient leaf at the initial state (summed
+    over the batch axes and assembled), then 2 f32 train steps; the metrics
+    and the parameters after them assembled."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.core.mesh import assemble, local_block
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import steps as S
+    from repro_torch.parallel.sharding import make_ctx
+    from repro_torch.tree import leaves, tree_map, tree_unflatten
+    mesh = make_local_mesh(2)
+    pcfg = ParallelConfig(remat="none", fsdp_params=False, grad_dtype="float32")
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=8, z_loss=0.0)
+    ctx = make_ctx(mesh, pcfg)
+    out = {}
+    for arch, cfg in cfgs.items():
+        full = tree_map(lambda a: torch.from_numpy(a).to(device), states[arch])
+        specs = S.train_state_shardings(cfg, pcfg, ctx, full)
+        state = tree_map(lambda x, s: local_block(x, s, mesh).clone(), full, specs)
+        del full
+        pspecs = leaves(specs["params"])
+        rows = [{k: S.local_rows(torch.from_numpy(v).to(device), ctx) for k, v in b.items()}
+                for b in batches[arch]]
+        with mesh:
+            live = [p.detach().clone().requires_grad_(True) for p in leaves(state["params"])]
+            loss, _ = S.make_loss_fn(cfg, pcfg, tcfg, ctx)(tree_unflatten(state["params"], live),
+                                                           rows[0])
+            grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+            grads = [assemble(S._reduce_grad(g, s, s, ctx), s, mesh).cpu()
+                     for g, s in zip(grads, pspecs)]
+        del live
+        step = S.make_train_step(cfg, pcfg, tcfg, ctx)
+        metrics = []
+        for b in rows:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        with mesh:
+            ps = [assemble(x, s, mesh).cpu() for x, s in zip(leaves(state["params"]), pspecs)]
+        out[arch] = {"loss0": float(loss.detach()), "metrics": metrics,
+                     "grads": grads if mesh.rank == 0 else None,
+                     "params": ps if mesh.rank == 0 else None}
+    return out
+
+
+def phase_train_families_ranks(dev: str = "cuda") -> None:
+    """The reduced Zamba2, xLSTM and Whisper configs (f32) on 4 gloo ranks
+    (mesh (2, 2), tensor parallelism 2, batch over data) against one
+    process on the card from the same state, with PERF.md section 2's train
+    gates: the loss (1e-5 relative) and every gradient leaf (1e-4 normwise)
+    at the initial state, then 2 train steps: each step's loss 1e-4 and the
+    first step's grad norm 1e-5 relative.  The second step's grad norm and
+    the parameters after the steps are printed, not held: AdamW's first
+    update is nearly sign(g), so an entry whose gradient lies at the
+    rounding noise of the two summation orders moves by the rate either way."""
+    from repro_torch import configs
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.core.mesh import launch
+    from repro_torch.parallel import steps as S
+    from repro_torch.tree import leaves, tree_map, tree_unflatten
+    loss_tol, grad_tol = TRAIN_TOL["float32"]
+    pcfg = ParallelConfig(remat="none", fsdp_params=False, grad_dtype="float32")
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=8, z_loss=0.0)
+    states, batches, single = {}, {}, {}
+    cfgs = {a: configs.reduced(configs.get(a)).replace(dtype="float32") for a in TRAIN_RANK_ARCHS}
+    for arch, cfg in cfgs.items():
+        r = np.random.RandomState(1)
+        bs = []
+        for _ in range(2):
+            b = {"tokens": r.randint(0, cfg.vocab, (4, 64)).astype(np.int32)}
+            if cfg.enc_dec:
+                b["frames"] = r.randn(4, 256, cfg.d_model).astype(np.float32)
+            bs.append(b)
+        state = S.init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, pcfg)
+        states[arch] = tree_map(lambda t: t.cpu().numpy().copy(), state)   # steps write in place
+        batches[arch] = bs
+        tb = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in bs]
+        live = [p.detach().clone().requires_grad_(True) for p in leaves(state["params"])]
+        loss, _ = S.make_loss_fn(cfg, pcfg, tcfg)(tree_unflatten(state["params"], live), tb[0])
+        grads = [g.cpu() for g in torch.autograd.grad(loss, live, allow_unused=True,
+                                                      materialize_grads=True)]
+        del live
+        step = S.make_train_step(cfg, pcfg, tcfg)
+        metrics = []
+        for b in tb:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        single[arch] = (float(loss.detach()), grads, metrics,
+                        [t.cpu() for t in leaves(state["params"])])
+    t0 = time.perf_counter()
+    res = launch(4, rank_train_families, cfgs, states, batches, device=dev, timeout=900)
+    rows, bad = [], []
+    for arch in TRAIN_RANK_ARCHS:
+        loss0, grads, metrics, params = single[arch]
+        got = res[0][arch]
+        rel0 = abs(got["loss0"] - loss0) / abs(loss0)
+        gerr = max(float(np.linalg.norm(a - b.numpy()) / max(float(b.norm()), 1e-30))
+                   for a, b in zip(got["grads"], grads))
+        lrel = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got["metrics"], metrics)]
+        nrel = [abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                for g, w in zip(got["metrics"], metrics)]
+        perr = max(float(np.linalg.norm(a - b.numpy()) / max(float(b.norm()), 1e-30))
+                   for a, b in zip(got["params"], params))
+        rows.append(f"{arch} loss {loss0:.4f} relative {rel0:.1e}, worst grad leaf {gerr:.1e}, "
+                    f"step losses relative {', '.join(f'{x:.1e}' for x in lrel)}, grad norms "
+                    f"{', '.join(f'{x:.1e}' for x in nrel)}, parameters after 2 steps "
+                    f"{perr:.1e} (not held)")
+        if not (rel0 <= loss_tol and gerr <= grad_tol and max(lrel) <= grad_tol
+                and nrel[0] <= loss_tol):
+            bad.append(arch)
+    print(f"[train families ranks] reduced configs, f32, batch 4 x 64 (whisper: 256 frames), "
+          f"4 ranks, mesh (2, 2), TP 2, vs one process on the card: " + "; ".join(rows)
+          + f"; launch {time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"train families ranks {bad}: the ranks differ from one process (loss and first "
+             f"grad norm {loss_tol}, gradient leaves and step losses {grad_tol})")
+
+
+# ---------------------------------------------------------------------------
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2532,8 +3225,9 @@ def main() -> None:
     comps, launches = _timed("serve", phase_serve, cfg, params)
     _timed("oracle", phase_oracle, cfg, params, comps[0])
     _timed("trace", phase_trace, cfg, params)
-    comp, flash_launches = _timed("serve aligned", phase_serve_aligned, cfg, params, comps)
-    _timed("oracle aligned", phase_oracle_aligned, cfg, params, comp)
+    aligned_comps, flash_launches = _timed("serve aligned", phase_serve_aligned, cfg, params,
+                                           comps)
+    _timed("oracle aligned", phase_oracle_aligned, cfg, params, aligned_comps[0])
     del params
     torch.cuda.empty_cache()
     train_losses = _timed("train", phase_train, cfg)
@@ -2549,6 +3243,10 @@ def main() -> None:
     _timed("serve encdec", phase_serve_encdec)
     _timed("train families", phase_train_families)
     _timed("moe ranks", phase_moe_ranks)
+    cfgs = rank_cfgs()
+    served = _timed("serve ranks", phase_serve_ranks, aligned_comps, cfgs)
+    _timed("serve ranks families", phase_serve_ranks_families, served, cfgs)
+    _timed("train families ranks", phase_train_families_ranks)
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     kernels = [
         _record("paged_attention", csrc + "paged_attention.cu", ref + "paged_attention.py:90",

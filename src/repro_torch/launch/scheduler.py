@@ -32,6 +32,20 @@ kinds (Mamba2, mLSTM, sLSTM) cannot take a right-padded prompt, so its
 admission feeds the prompt through decode steps one token at a time and
 takes the first token from the last prompt token's logits (sampled when
 sampling is on).  Enc-dec models are not scheduled, as in JAX.
+
+Under a mesh ctx (``ctx=``, inside one rank of ``core.mesh.launch``, with
+the rank's parameter blocks) every rank runs this same host loop on the
+same requests.  The decode step runs on the batch axes that divide the
+slots and a B=1 admission on none (``launch.specs.restrict_batch``); the
+slot cache is the rank's blocks (``cache_specs``: the end-aligned rows
+split over ``model`` on their length, so ``max_len`` must split, and
+``bucket`` too, so that a prompt's prefill runs the sequence-sharded
+region), an admission's one-row cache is ``max_len`` long so that its
+blocks line up with the slot rows', and the paged arenas are whole on
+every rank.  The steps return
+the same global logits on every rank and sampling draws from the same
+seeded generator, so every rank takes the same tokens; a rank whose tokens
+differ from the others' raises (``_agree``), rank 0 does not overrule it.
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.dseq import all_gather_dim
 from repro_torch.models import transformer as T
 from repro_torch.parallel import steps as S
 from repro_torch.serving import BlockPool
@@ -119,7 +134,7 @@ class Scheduler:
                  max_len: int = 256, bucket: int = 16, bos: int = 0,
                  temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
                  paged: bool = False, block: int = 16,
-                 pool_blocks: Optional[int] = None, chunk: int = 32):
+                 pool_blocks: Optional[int] = None, chunk: int = 32, ctx=None):
         if cfg.enc_dec:
             raise NotImplementedError("enc-dec serving is not scheduled yet")
         if slots < 1 or max_len < 2:
@@ -132,8 +147,20 @@ class Scheduler:
             raise NotImplementedError(
                 f"slots are end-aligned: max_len {max_len} must fit the "
                 f"attention window {cfg.window}")
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.ctx = cfg, params, ctx
         self.device = params["embed"]["embedding"].device
+        # the decode step's ctx (batch axes dividing the slots) and a B=1
+        # admission's (batch replicated)
+        self._dctx = self._pctx = None
+        if ctx is not None:
+            from repro_torch.launch.specs import restrict_batch
+            self._dctx, self._pctx = restrict_batch(ctx, slots), restrict_batch(ctx, 1)
+            m = ctx.model_size
+            attends = any(k in ("attn", "attn_moe", "mamba2_attn") for k in cfg.block_pattern)
+            if not paged and attends and (max_len % m or max(1, bucket) % m):
+                raise ValueError(f"under a ctx the end-aligned cache rows split over "
+                                 f"{ctx.model_axis!r}: max_len {max_len} and bucket {bucket} "
+                                 f"must be multiples of {m}")
         self.slots, self.max_len = slots, max_len
         self.bucket, self.bos = max(1, bucket), bos
         self.temperature, self.top_p, self.seed = temperature, top_p, seed
@@ -152,13 +179,14 @@ class Scheduler:
             self.n_pages = -(-max_len // block)          # block-table width
             self.pool = BlockPool(pool_blocks if pool_blocks is not None
                                   else slots * self.n_pages, block)
-            self._chunk_prefill = S.make_chunk_prefill_step(cfg)
+            self._chunk_prefill = S.make_chunk_prefill_step(cfg, self._pctx)
         elif self.fused:
-            self._prefill = S.make_prefill_step(cfg)
+            self._prefill = S.make_prefill_step(cfg, self._pctx)
         else:
             # the per-token prefill fallback reads each step's logits
-            self._step_logits = S.make_decode_step(cfg, return_logits=True)
-        self._decode = S.make_decode_step(cfg, return_logits=self.sampling, paged=paged)
+            self._step_logits = S.make_decode_step(cfg, return_logits=True, ctx=self._pctx)
+        self._decode = S.make_decode_step(cfg, return_logits=self.sampling, paged=paged,
+                                          ctx=self._dctx)
         self.reset()
 
     def reset(self) -> None:
@@ -172,7 +200,7 @@ class Scheduler:
             self._tables = np.full((self.slots, self.n_pages), -1, np.int32)
         else:
             self.cache = T.init_cache(self.cfg, self.slots, self.max_len,
-                                      device=self.device)
+                                      device=self.device, ctx=self._dctx)
         self._tok = np.zeros((self.slots,), np.int32)
         self._pos = np.zeros((self.slots,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -183,18 +211,55 @@ class Scheduler:
 
     def _first_token(self, logits: torch.Tensor) -> int:
         if self.sampling:
-            return int(sample_tokens(logits, self._gen, self.temperature, self.top_p)[0])
-        return int(torch.argmax(logits, dim=-1)[0])
+            tok = sample_tokens(logits, self._gen, self.temperature, self.top_p)
+        else:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return int(self._agree(tok)[0])
+
+    def _agree(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Under a ctx: the ranks' tokens side by side (one all-gather over
+        the mesh); a rank whose tokens differ from rank 0's raises, on every
+        rank.  ``tokens`` otherwise."""
+        if self.ctx is None:
+            return tokens
+        mesh = self.ctx.mesh
+        got = all_gather_dim(tokens[None], mesh.axis_names, 0, mesh)
+        bad = [r for r in range(got.shape[0]) if not torch.equal(got[r], got[0])]
+        if bad:
+            raise RuntimeError(f"ranks {bad} took other tokens than rank 0: "
+                               f"{got[bad].tolist()} against {got[0].tolist()}")
+        return tokens
 
     def _insert(self, row, slot: int) -> None:
         """Copy a one-row cache into ``slot``'s row of the slot cache, in
         place, from position 0 (JAX's ``_insert_impl``), cast to the slot
         cache's dtype: K/V positions past the row keep the previous
         occupant's, behind the causal mask; a recurrent state is replaced
-        whole."""
+        whole.  Under a ctx the row (batch-replicated, ``max_len`` long:
+        ``_row``) holds the same blocks as the slot rows, and the ranks
+        whose batch block holds ``slot`` copy theirs."""
+        local = slot
+        if self._dctx is not None and self._dctx.batch_axes:
+            rows = self.cache_rows()
+            local -= self._dctx.mesh.index(self._dctx.batch_axes) * rows
+            if not 0 <= local < rows:
+                return
         for big, small in zip(self.cache, row):
             for b, s in zip(leaves(big), leaves(small)):
-                b[slot, :s.shape[1]].copy_(s[0])
+                b[local, :s.shape[1]].copy_(s[0])
+
+    def _row(self, length: int):
+        """A fresh one-row cache for an admission of ``length`` positions;
+        under a ctx ``max_len`` long, so that its blocks over ``model`` line
+        up with the slot rows'."""
+        n = self.max_len if self.ctx is not None else length
+        return T.init_cache(self.cfg, 1, n, device=self.device, ctx=self._pctx)
+
+    def cache_rows(self) -> int:
+        """The slot cache's rows on this rank."""
+        if self._dctx is None or not self._dctx.batch_axes:
+            return self.slots
+        return self.slots // self._dctx.mesh.size(self._dctx.batch_axes)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -243,8 +308,7 @@ class Scheduler:
             # no prompt: generation starts from BOS at position 0 on a fresh
             # row -- recurrent state has no position indexing, so the
             # previous occupant's must be zeroed (a prompt's row replaces it)
-            self._insert(T.init_cache(self.cfg, 1, self._bucketed(1), device=self.device),
-                         slot)
+            self._insert(self._row(self._bucketed(1)), slot)
             self._tok[slot], self._pos[slot] = self.bos, 0
             return None
         if not self.fused:
@@ -254,8 +318,7 @@ class Scheduler:
         toks[0, :lp] = prompt
         batch = {"tokens": self._to_device(toks),
                  "length": torch.tensor([lp], dtype=torch.int32, device=self.device)}
-        logits, row = self._prefill(self.params, batch,
-                                    T.init_cache(self.cfg, 1, lb, device=self.device))
+        logits, row = self._prefill(self.params, batch, self._row(lb))
         first = self._first_token(logits)
         self._insert(row, slot)
         self._tok[slot], self._pos[slot] = first, lp
@@ -266,7 +329,7 @@ class Scheduler:
         (padding would enter the state); the last step's logits give the
         first token."""
         lp = int(prompt.shape[0])
-        row = T.init_cache(self.cfg, 1, self._bucketed(lp), device=self.device)
+        row = self._row(self._bucketed(lp))
         for i in range(lp):
             logits, row = self._step_logits(self.params, self._to_device(prompt[i:i + 1]),
                                             row, i)
@@ -408,7 +471,7 @@ class Scheduler:
             out, self.cache = self._decode(self.params, *args)
             if self.sampling:
                 out = sample_tokens(out, self._gen, self.temperature, self.top_p)
-            nxt = out.cpu().numpy()             # host sync = the stream point
+            nxt = self._agree(out).cpu().numpy()   # host sync = the stream point
             tick += 1
             decode_steps += 1
             for slot in decoding:

@@ -10,8 +10,14 @@ the encoder output at each call, as the reference does) and a GELU MLP.
 LayerNorm, learned positional tables ``enc_pos`` (1500, d) and ``dec_pos``
 (32768, d) kept in f32.  JAX stacks ``enc_layers`` / ``dec_layers`` over
 the layers; here each is a list of per-layer dicts.  A cache is a list of
-one (K, V) pair per decoder layer.  Runs on one process (a mesh ctx
-raises: ROADMAP queue 1, item 6).
+one (K, V) pair per decoder layer.
+
+Under a mesh ctx every call runs inside one rank on its batch rows and
+parameter blocks (``models/layers.py``): the encoder's and the decoder's
+attention in the sequence-sharded region (Whisper's 1500 frames split
+over ``model``), the cache's length split over ``model`` for decoding, the
+decoder's one-token cross-attention against the whole encoder K/V, the
+MLPs tensor-parallel, the logits split over the vocabulary.
 """
 from __future__ import annotations
 
@@ -21,18 +27,12 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import remat_call
+from repro_torch.models.transformer import local_cache, remat_call
 from repro_torch.tree import leaves_with_path, tree_unflatten
 
 Params = dict
 ENC_LEN = 1500       # whisper: 30 s at 50 Hz after the (stubbed) conv frontend
 DEC_LEN = 32768
-
-
-def _refuse_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("the enc-dec model under a mesh ctx is not ported "
-                                  "(ROADMAP queue 1, item 6)")
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -75,7 +75,6 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *, remat: str = "none",
            ctx=None) -> torch.Tensor:
     """frames (B, T_enc, d) stub frame embeddings -> encoder output (B, T_enc, d)."""
-    _refuse_ctx(ctx)
     dt = L._dtype(cfg)
     t = frames.shape[1]
     h = frames.to(dt) + params["enc_pos"][:t].to(dt)
@@ -83,40 +82,39 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *, remat: str
 
     def layer(h, p):
         a, _ = L.attention(p["attn"], L.apply_norm(p["ln1"], h, cfg), positions, cfg,
-                           causal=False)
+                           causal=False, ctx=ctx)
         h = h + a
-        return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
+        return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg, ctx)
 
     for p in params["enc_layers"]:
         h = remat_call(layer, remat, h, p)
     return L.apply_norm(params["enc_norm"], h, cfg)
 
 
-def _dec_layer(p: Params, h, positions, enc_out, cfg, cache=None, cache_pos=None):
+def _dec_layer(p: Params, h, positions, enc_out, cfg, cache=None, cache_pos=None, ctx=None):
     a, new = L.attention(p["attn"], L.apply_norm(p["ln1"], h, cfg), positions, cfg,
-                         cache=cache, cache_pos=cache_pos)
+                         cache=cache, cache_pos=cache_pos, ctx=ctx)
     h = h + a
     xa, _ = L.attention(p["xattn"], L.apply_norm(p["lnx"], h, cfg), positions, cfg,
-                        xattn_kv=enc_out)
+                        xattn_kv=enc_out, ctx=ctx)
     h = h + xa
-    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg), new
+    return h + L.mlp(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg, ctx), new
 
 
 def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ModelConfig, *, remat: str = "none", ctx=None) -> torch.Tensor:
     """Teacher-forced decoder pass.  Returns logits (B, S, V) f32."""
-    _refuse_ctx(ctx)
     s = tokens.shape[1]
-    h = L.embed(params["embed"], tokens, cfg) + params["dec_pos"][:s].to(L._dtype(cfg))
+    h = L.embed(params["embed"], tokens, cfg, ctx) + params["dec_pos"][:s].to(L._dtype(cfg))
     positions = torch.arange(s, device=tokens.device)
 
     def layer(h, p):
-        return _dec_layer(p, h, positions, enc_out, cfg)[0]
+        return _dec_layer(p, h, positions, enc_out, cfg, ctx=ctx)[0]
 
     for p in params["dec_layers"]:
         h = remat_call(layer, remat, h, p)
     h = L.apply_norm(params["final_norm"], h, cfg)
-    return L.logits(params["embed"], h, cfg)
+    return L.logits(params["embed"], h, cfg, ctx)
 
 
 def forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -128,9 +126,13 @@ def forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor, cfg: Mod
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
-               dtype: torch.dtype = torch.bfloat16) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+               dtype: torch.dtype = torch.bfloat16,
+               ctx=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """One (K, V) pair of ``(batch, max_len, kv_heads, hd)`` zeros per
-    decoder layer."""
+    decoder layer; under ``ctx`` this rank's blocks (``cache_specs``)."""
+    if ctx is not None:
+        return local_cache(cfg, init_cache(cfg, batch, max_len, device="meta", dtype=dtype),
+                           ctx, device)
     shp = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return [(torch.zeros(shp, dtype=dtype, device=device),
              torch.zeros(shp, dtype=dtype, device=device)) for _ in range(cfg.n_layers)]
@@ -142,19 +144,18 @@ def decode_prefill(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor, 
     call for a prompt-length loop of decode steps).  ``length``: optional
     (B,) true prompt lengths of right-padded prompts.  Returns
     (last-position logits (B, V) f32, cache)."""
-    _refuse_ctx(ctx)
     b, s = tokens.shape
-    h = L.embed(params["embed"], tokens, cfg) + params["dec_pos"][:s].to(L._dtype(cfg))
+    h = L.embed(params["embed"], tokens, cfg, ctx) + params["dec_pos"][:s].to(L._dtype(cfg))
     positions = torch.arange(s, device=tokens.device)
     for i, p in enumerate(params["dec_layers"]):
-        h, cache[i] = _dec_layer(p, h, positions, enc_out, cfg, cache[i], 0)
+        h, cache[i] = _dec_layer(p, h, positions, enc_out, cfg, cache[i], 0, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
     if length is None:
         h_last = h[:, -1]
     else:
         idx = torch.as_tensor(length, device=h.device).long().expand(b) - 1
         h_last = h[torch.arange(b, device=h.device), idx]
-    return L.logits(params["embed"], h_last[:, None], cfg)[:, 0], cache
+    return L.logits(params["embed"], h_last[:, None], cfg, ctx)[:, 0], cache
 
 
 def decode_step(params: Params, token: torch.Tensor, cache, pos, enc_out: torch.Tensor,
@@ -162,12 +163,11 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos, enc_out: torch.
     """One decoder step with cached self-attention; cross-attention recomputes
     K/V from ``enc_out`` (B, T_enc, d).  pos: a scalar, or (B,) per-row
     positions.  Returns (logits (B, V) f32, cache)."""
-    _refuse_ctx(ctx)
     pos = torch.as_tensor(pos, device=token.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    h = L.embed(params["embed"], token[:, None], cfg) + \
+    h = L.embed(params["embed"], token[:, None], cfg, ctx) + \
         params["dec_pos"][positions].to(L._dtype(cfg))
     for i, p in enumerate(params["dec_layers"]):
-        h, cache[i] = _dec_layer(p, h, positions, enc_out, cfg, cache[i], pos)
+        h, cache[i] = _dec_layer(p, h, positions, enc_out, cfg, cache[i], pos, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
-    return L.logits(params["embed"], h, cfg)[:, 0], cache
+    return L.logits(params["embed"], h, cfg, ctx)[:, 0], cache

@@ -48,8 +48,37 @@ A replicated activation entering a column-parallel product passes through
 ``copy_d`` (its gradient is summed over ``model``), so every
 model-replicated tensor's gradient is the same on each rank of the group.
 Under ``dp_over_model`` nothing is model-sharded and attention is local.
-A ctx together with a cache (the serve engine on a mesh) is not ported
-(ROADMAP queue 1, item 9).
+
+With a cache under a ctx (the serve engine on a mesh), the layout of
+``launch/specs.py::cache_specs``: an end-aligned cache ``(B, L, Hkv, hd)``
+is split over ``model`` on its length, rank r holding the slots
+``[r L/p, (r+1) L/p)``:
+
+  * a fused prefill from position 0 runs the sequence-sharded region; the
+    prompt's K/V (all S tokens, gathered) go into the rank's slots (an SWA
+    prompt longer than the ring keeps its last L tokens at their ring
+    slots), and outside autograd the rank's S/p query rows go through the
+    flash kernel against the keys ``[0, (r+1) S/p)`` (causal: the rows are
+    end-aligned to them);
+  * a decode step (and any other call) runs with q replicated: the q, k
+    and v columns are gathered in one ``allGatherD``, a row's token is
+    written only on the rank that owns its slot, each rank scores its
+    slots, and the softmax combines over ``model`` (``_sdpa_split``: an
+    all-reduce of the row max, the rescale, an all-reduce of the sum and
+    the unnormalised output, in f32); a shard with no valid slot weighs 0.
+    A fused prefill from 0 whose S does not split over ``model`` (or that
+    is longer than the ring) attends the whole gathered k/v through the
+    flash kernel on every rank, as one process does;
+  * the paged arenas and block tables are replicated over ``model``: each
+    rank writes and reads its batch rows, through the paged-attention
+    kernel in decode;
+  * cross-attention (enc-dec) runs the sequence-sharded region when S
+    splits; the decoder's one-token step keeps q replicated against the
+    encoder K/V, gathered in full (they are recomputed from the replicated
+    encoder output at each call, as in the reference, and one query row
+    against 1500 keys is too small a product to split).
+The output leaves through the row-parallel ``wo``, whose partial products
+``reduceD("sum")``.
 """
 from __future__ import annotations
 
@@ -65,6 +94,7 @@ from repro_torch.core.tensor_ops import foopar_matmul_col, foopar_matmul_row
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.parallel.sharding import leaf_spec
+from repro_torch.tree import tree_map
 
 Params = dict
 NEG_INF = -1e30
@@ -263,9 +293,10 @@ def _write_rows(rows: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> Non
 
 
 def _flash(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
-    """Lq == Lk attention at offset 0 through the flash-attention kernel, in
-    the model's layout: q (B, L, Hkv, rep, hd) and k, v (B, L, Hkv, hd) go in
-    as strided (B, H, L, hd) views, no copies; returns (B, L, Hkv, rep, hd)."""
+    """Attention through the flash-attention kernel, queries end-aligned to
+    the keys (Lq <= Lk), in the model's layout: q (B, Lq, Hkv, rep, hd) and
+    k, v (B, Lk, Hkv, hd) go in as strided (B, H, L, hd) views, no copies;
+    returns (B, Lq, Hkv, rep, hd)."""
     b, lq, hkv, rep, hd = q.shape
     out = flash_attention(q.reshape(b, lq, hkv * rep, hd).transpose(1, 2),
                           k.transpose(1, 2), v.transpose(1, 2), causal=causal,
@@ -299,19 +330,14 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     Cross-attention (the enc-dec decoder): ``xattn_kv`` (B, T, d) is the
     encoder output; keys and values come from it, without RoPE, cache or
     mask, through ``_sdpa`` (the reference's arithmetic).
-    With ``ctx`` and no cache: the sequence-sharded region of the module
-    docstring (``_attention_ctx``).
+    With ``ctx``: the rank's batch rows and cache blocks (the module
+    docstring; ``_attention_ctx``).
     """
     if ctx is not None:
-        if xattn_kv is not None:
-            raise NotImplementedError("cross-attention under a mesh ctx (enc-dec on a "
-                                      "mesh) is not ported (ROADMAP queue 1, item 6)")
-        if cache is not None:
-            raise NotImplementedError(
-                "attention with a cache under a mesh ctx (the serve engine with a "
-                "model-sharded cache) is not ported (ROADMAP queue 1, item 9)")
         if _tp_axis(ctx) is not None:
-            return _attention_ctx(p, x, positions, cfg, causal=causal, ctx=ctx), None
+            return _attention_ctx(p, x, positions, cfg, causal=causal, ctx=ctx, cache=cache,
+                                  cache_pos=cache_pos, block_tables=block_tables,
+                                  xattn_kv=xattn_kv)
         # pure DP: the attention of one device on the gathered weights
         d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
@@ -326,12 +352,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     q = dense(x, p["wq"], cfg).reshape(b, s, hkv, rep, hd)
     k = dense(kv_src, p["wk"], cfg).reshape(b, -1, hkv, hd)
     v = dense(kv_src, p["wv"], cfg).reshape(b, -1, hkv, hd)
-    if cfg.qk_norm:
-        q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
-        k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    if xattn_kv is None:
-        q = rope(q.reshape(b, s, hq, hd), positions, cfg).reshape(b, s, hkv, rep, hd)
-        k = rope(k, positions, cfg)
+    q, k = _qk_rope(p, q, k, positions, cfg, rope_on=xattn_kv is None)
 
     new_cache = None
     if xattn_kv is not None:
@@ -345,18 +366,8 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
             # at its own slot; a parked slot past the row drops its write
             _write_rows(ck, cache_pos, k[:, 0])
             _write_rows(cv, cache_pos, v[:, 0])
-        elif s > lk:
-            # fused SWA prefill, prompt longer than the ring: keep the last
-            # lk tokens at their ring slots (token j -> slot j % lk)
-            slots = torch.arange(s - lk, s, device=x.device) % lk
-            ck[:, slots] = k[:, s - lk:].to(ck.dtype)
-            cv[:, slots] = v[:, s - lk:].to(cv.dtype)
         else:
-            # JAX's dynamic_update_slice: the start is clamped so the update
-            # fits the row
-            start = min(max(int(cache_pos), 0), lk - s)
-            ck[:, start:start + s] = k.to(ck.dtype)
-            cv[:, start:start + s] = v.to(cv.dtype)
+            _write_prefill(ck, cv, k, v, cache_pos, 0)
         new_cache = (ck, cv)
         if s > lk:
             # prefill longer than the ring: attend the full in-flight k/v
@@ -377,45 +388,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
             # end-aligned: query position == cache_pos
             out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)
     elif cache is not None:
-        if cfg.window is not None:
-            raise NotImplementedError("paged attention needs full (no-SWA) attention")
-        ck, cv = cache
-        n_pages = block_tables.shape[1]
-        blk = ck.shape[1]
-        if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
-            # decode: row i writes its token at page pos//block, offset
-            # pos%block of its own chain; a position past the table width or
-            # a -1 entry (parked / prefilling slot) drops the write
-            pg, off = cache_pos // blk, cache_pos % blk
-            inside = pg < n_pages
-            entry = torch.gather(block_tables, 1,
-                                 pg.clamp(max=n_pages - 1)[:, None].long())[:, 0]
-            entry = torch.where(inside, entry, -1)
-            _write_pages(ck, entry, off, k[:, 0])
-            _write_pages(cv, entry, off, v[:, 0])
-            out = paged_attention(q[:, 0].contiguous(), ck, cv,
-                                  block_tables.to(torch.int32).contiguous(),
-                                  (cache_pos + 1).to(torch.int32))[:, None]
-        else:
-            # chunked prefill (B=1): the chunk's tokens land at positions
-            # cache_pos..cache_pos+s-1 through the table, then attend
-            # causally over the gathered page view.  Right-pad tokens whose
-            # page lies past the table width must drop (a clamped index
-            # would scatter pad K/V over the last live page); pad writes
-            # inside the table are re-written by real tokens before any
-            # query reads them, and pad queries' outputs are never used.
-            if b != 1:
-                raise ValueError(f"chunked prefill runs one request per call, got B={b}")
-            tpos = cache_pos + torch.arange(s, device=x.device)
-            pg, off = tpos // blk, tpos % blk
-            entry = torch.where(pg < n_pages, block_tables[0, pg.clamp(max=n_pages - 1)],
-                                -1)
-            _write_pages(ck, entry, off, k[0])
-            _write_pages(cv, entry, off, v[0])
-            idx = block_tables.long().clamp(min=0)
-            out = _sdpa(q, ck[idx].reshape(b, -1, hkv, hd), cv[idx].reshape(b, -1, hkv, hd),
-                        causal=True, window=None, q_offset=cache_pos)
-        new_cache = (ck, cv)
+        out, new_cache = _paged(q, k, v, cache, cache_pos, block_tables, cfg)
     elif q.requires_grad:
         # a train step: the flash kernel has no backward pass
         out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
@@ -424,6 +397,89 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
 
     out = out.reshape(b, s, hq * hd)
     return dense(out, p["wo"], cfg), new_cache
+
+
+def _qk_rope(p: Params, q, k, positions, cfg: ModelConfig, *, rope_on: bool,
+             k_positions=None):
+    """qk-norm, then RoPE at ``positions`` (q) and ``k_positions`` (k,
+    default ``positions``) unless ``rope_on`` is False (cross-attention)."""
+    b, s, hkv, rep, hd = q.shape
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    if rope_on:
+        q = rope(q.reshape(b, s, hkv * rep, hd), positions, cfg).reshape(b, s, hkv, rep, hd)
+        k = rope(k, positions if k_positions is None else k_positions, cfg)
+    return q, k
+
+
+def _write_prefill(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache_pos, lo: int, length: Optional[int] = None) -> None:
+    """A fused prefill's K/V (B, S, ..) into the cache slots ``[lo, lo +
+    ck.shape[1])`` of a row of ``length`` slots (default: all of them
+    here): at ``cache_pos`` on, with JAX's ``dynamic_update_slice`` clamp
+    of the start so the update fits the row; a prompt longer than the row
+    (an SWA ring) keeps its last ``length`` tokens at their ring slots
+    (token j -> slot j % length).  Slots outside the block are another
+    rank's."""
+    s, nl = k.shape[1], ck.shape[1]
+    lk = length if length is not None else nl
+    if s > lk:
+        g = torch.arange(lo, lo + nl, device=k.device)
+        tok = s - lk + (g - (s - lk)) % lk          # the token whose ring slot is g
+        ck[:] = k[:, tok].to(ck.dtype)
+        cv[:] = v[:, tok].to(cv.dtype)
+        return
+    start = min(max(int(cache_pos), 0), lk - s)
+    a, e = max(lo, start), min(lo + nl, start + s)
+    if a < e:
+        ck[:, a - lo:e - lo] = k[:, a - start:e - start].to(ck.dtype)
+        cv[:, a - lo:e - lo] = v[:, a - start:e - start].to(cv.dtype)
+
+
+def _paged(q, k, v, cache, cache_pos, block_tables, cfg: ModelConfig):
+    """Paged decode (per-row ``cache_pos``: the paged-attention kernel) or
+    chunked prefill (scalar ``cache_pos``, B=1: ``_sdpa`` over the page
+    view) of ``attention``; writes the arenas in place."""
+    if cfg.window is not None:
+        raise NotImplementedError("paged attention needs full (no-SWA) attention")
+    b, s, hkv, rep, hd = q.shape
+    ck, cv = cache
+    n_pages = block_tables.shape[1]
+    blk = ck.shape[1]
+    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+        # decode: row i writes its token at page pos//block, offset
+        # pos%block of its own chain; a position past the table width or
+        # a -1 entry (parked / prefilling slot) drops the write
+        pg, off = cache_pos // blk, cache_pos % blk
+        inside = pg < n_pages
+        entry = torch.gather(block_tables, 1,
+                             pg.clamp(max=n_pages - 1)[:, None].long())[:, 0]
+        entry = torch.where(inside, entry, -1)
+        _write_pages(ck, entry, off, k[:, 0])
+        _write_pages(cv, entry, off, v[:, 0])
+        out = paged_attention(q[:, 0].contiguous(), ck, cv,
+                              block_tables.to(torch.int32).contiguous(),
+                              (cache_pos + 1).to(torch.int32))[:, None]
+        return out, (ck, cv)
+    # chunked prefill (B=1): the chunk's tokens land at positions
+    # cache_pos..cache_pos+s-1 through the table, then attend causally
+    # over the gathered page view.  Right-pad tokens whose page lies past
+    # the table width must drop (a clamped index would scatter pad K/V over
+    # the last live page); pad writes inside the table are re-written by
+    # real tokens before any query reads them, and pad queries' outputs are
+    # never used.
+    if b != 1:
+        raise ValueError(f"chunked prefill runs one request per call, got B={b}")
+    tpos = cache_pos + torch.arange(s, device=q.device)
+    pg, off = tpos // blk, tpos % blk
+    entry = torch.where(pg < n_pages, block_tables[0, pg.clamp(max=n_pages - 1)], -1)
+    _write_pages(ck, entry, off, k[0])
+    _write_pages(cv, entry, off, v[0])
+    idx = block_tables.long().clamp(min=0)
+    out = _sdpa(q, ck[idx].reshape(b, -1, hkv, hd), cv[idx].reshape(b, -1, hkv, hd),
+                causal=True, window=None, q_offset=cache_pos)
+    return out, (ck, cv)
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +515,39 @@ def _weight(w: torch.Tensor, names: Tuple[str, ...], shape: Tuple[int, ...], cfg
     return w
 
 
+def col_product(x: torch.Tensor, w: torch.Tensor, names: Tuple[str, ...],
+                shape: Tuple[int, ...], cfg: ModelConfig, ctx) -> torch.Tensor:
+    """Inside a tensor-parallel block (its input passed through ``copy_d``):
+    ``x`` (replicated over ``model``) times the column-parallel ``w`` ->
+    the whole ``(.., d_out)`` product, replicated: the rank's columns are
+    gathered (``allGatherD``, whose transpose sums the ranks' shares of the
+    cotangent).  A weight the rules leave whole is multiplied whole, its
+    gradient summed over ``model`` (``copy_d``)."""
+    spec = leaf_spec(names, shape, cfg, ctx)
+    wt = _weight(w, names, shape, cfg, ctx, dtype=_dtype(cfg))
+    if spec[1] == ctx.model_axis:
+        return all_gather_dim(dense(x, wt, cfg), ctx.model_axis, -1, ctx.mesh)
+    return dense(x, copy_d(wt, ctx.model_axis, ctx.mesh), cfg)
+
+
+def row_product(h: torch.Tensor, w: torch.Tensor, names: Tuple[str, ...],
+                shape: Tuple[int, ...], cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The way out of a tensor-parallel block: the rank's features of ``h``
+    (replicated, ``(.., d_in)``) times its rows of the row-parallel ``w``,
+    the partial products ``reduceD("sum")``'d into the replicated output."""
+    wt = _weight(w, names, shape, cfg, ctx, model_dim=0, dtype=_dtype(cfg))
+    n = wt.shape[0]
+    h = h.narrow(-1, ctx.mesh.index(ctx.model_axis) * n, n)
+    return reduce_sum(dense(h, wt, cfg), ctx.model_axis, ctx.mesh)
+
+
+def replicated_params(p: Params, ctx) -> Params:
+    """Model-replicated parameters (norm scales, biases, the SSM's vectors)
+    used inside a tensor-parallel block: ``copy_d``, so each rank's share of
+    their gradient is summed over ``model``."""
+    return tree_map(lambda t: copy_d(t, ctx.model_axis, ctx.mesh), p)
+
+
 def _sdpa_manual(q, k, v, ctx, *, causal: bool, window: Optional[int]) -> torch.Tensor:
     """Sequence-sharded attention inside one rank: ``q`` holds this shard's
     S/p query rows (full heads), ``k``/``v`` the full (GQA-small) keys; the
@@ -467,43 +556,166 @@ def _sdpa_manual(q, k, v, ctx, *, causal: bool, window: Optional[int]) -> torch.
     return _sdpa(q, k, v, causal=causal, window=window, q_offset=off)
 
 
+def _sdpa_split(q, k, v, ctx, *, causal: bool, window: Optional[int], q_offset,
+                k_offset: int, kv_len_valid=None) -> torch.Tensor:
+    """``_sdpa`` of replicated queries against keys split over ``model``:
+    this rank's ``k``/``v`` are the key slots ``[k_offset, k_offset +
+    Lk)`` (masks by the global key position).  The rank scores its slots;
+    the row max is all-reduced (max), each rank rescales its exponentials
+    to it and keeps their sum and its unnormalised output in f32, and those
+    are all-reduced (sum); the output is their quotient in q's dtype.  A
+    shard (or a row of one) with no valid slot has max -inf, weight 0 and
+    output 0, and its V is never read (masked slots are zeroed first, so
+    no 0 x NaN)."""
+    b, lq, hkv, rep, hd = q.shape
+    lk = k.shape[1]
+    dev, mesh, M = q.device, ctx.mesh, ctx.model_axis
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", (q * scale).float(), k.float())
+    per_row = torch.is_tensor(q_offset) and q_offset.dim() == 1
+    qpos = torch.arange(lq, device=dev) + (q_offset[:, None] if per_row else q_offset)
+    kpos = k_offset + torch.arange(lk, device=dev)
+    mask = torch.ones(qpos.shape + (lk,), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos[..., None]
+    if window is not None:
+        mask &= qpos[..., None] - kpos < window
+    if kv_len_valid is not None:
+        if torch.is_tensor(kv_len_valid) and kv_len_valid.dim() == 1:
+            kv_len_valid = kv_len_valid[:, None, None]
+        mask = mask & (kpos < kv_len_valid)
+    if mask.dim() == 2:
+        mask = mask[None]                                   # (1, Lq, Lk)
+    live = mask.any(dim=1).expand(b, lk)                    # (B, Lk): slots some query reads
+    v = torch.where(live[:, :, None, None], v, torch.zeros((), dtype=v.dtype, device=dev))
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    m = mesh.all_reduce(torch.amax(s, dim=-1, keepdim=True), "max", M)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    o = torch.einsum("bgrqk,bkgd->bqgrd", e, v.float())
+    lsum = torch.sum(e, dim=-1).permute(0, 3, 1, 2)[..., None]     # (b, q, g, r, 1)
+    tot = mesh.all_reduce(torch.cat([o, lsum], dim=-1), "sum", M)
+    o, lsum = tot[..., :hd], tot[..., hd:]
+    return torch.where(lsum > 0, o / torch.where(lsum > 0, lsum, 1.0), 0.0).to(q.dtype)
+
+
 def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
-                   causal: bool, ctx) -> torch.Tensor:
-    """Full-sequence attention on this rank's batch rows ``x`` (b, S, d),
-    replicated over ``model``; returns the rank's (b, S, d) output, also
-    replicated.  Heads are never sharded (GQA head counts rarely divide
-    TP): the einsum region is sequence-sharded over ``model``."""
+                   causal: bool, ctx, cache=None, cache_pos=None, block_tables=None,
+                   xattn_kv: Optional[torch.Tensor] = None):
+    """Attention on this rank's batch rows ``x`` (b, S, d), replicated over
+    ``model``; returns the rank's (b, S, d) output, also replicated, and
+    the cache.  Heads are never sharded (GQA head counts rarely divide TP):
+    with S > 1 from position 0 the einsum region is sequence-sharded over
+    ``model``; otherwise q is replicated and, with an end-aligned cache,
+    the keys are (the cache's length is split over ``model``)."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = hq // hkv
     dt, mesh, M = _dtype(cfg), ctx.mesh, ctx.model_axis
+    p_ = ctx.model_size
     wq = _weight(p["wq"], ("attn", "wq"), (d, hq * hd), cfg, ctx, model_dim=1, dtype=dt)
     wk = _weight(p["wk"], ("attn", "wk"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
     wv = _weight(p["wv"], ("attn", "wv"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
     wo = _weight(p["wo"], ("attn", "wo"), (hq * hd, d), cfg, ctx, model_dim=0, dtype=dt)
-    if s % ctx.model_size:
-        raise ValueError(f"sequence-sharded attention: S = {s} does not split "
-                         f"{ctx.model_size} ways over {M!r}")
-    s_loc = s // ctx.model_size
-    row0 = mesh.index(M) * s_loc
+    if cache is not None and block_tables is None:
+        for t in cache:
+            if t.shape[0] != b:
+                raise ValueError(f"cache block {tuple(t.shape)} for {b} rows")
     xm = copy_d(x, M, mesh)                   # column-parallel input
-    # q: feature-sharded -> sequence-sharded full heads; k, v: replicated
-    q = all_to_all_dim(dense(xm, wq, cfg), M, 1, 2, mesh)
-    k = all_gather_dim(dense(xm, wk, cfg), M, 2, mesh)
-    v = all_gather_dim(dense(xm, wv, cfg), M, 2, mesh)
-    q = q.reshape(b, s_loc, hkv, rep, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
-        q = _qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
-        k = _qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    q = rope(q.reshape(b, s_loc, hq, hd), positions[row0:row0 + s_loc], cfg)
-    q = q.reshape(b, s_loc, hkv, rep, hd)
-    k = rope(k, positions, cfg)
-    out = _sdpa_manual(q, k, v, ctx, causal=causal, window=cfg.window)
-    # sequence-sharded -> feature-sharded for the row-parallel wo
-    out = all_to_all_dim(out.reshape(b, s_loc, hq * hd), M, 2, 1, mesh)
-    return reduce_sum(dense(out, wo, cfg), M, mesh)
+    src = xm if xattn_kv is None else copy_d(xattn_kv, M, mesh)
+    cross = xattn_kv is not None
+    r = mesh.index(M)
+    seq_region = s > 1 and s % p_ == 0 and block_tables is None and (
+        cache is None or (isinstance(cache_pos, int) and cache_pos == 0))
+    if seq_region:
+        s_loc = s // p_
+        row0 = r * s_loc
+        # q: feature-sharded -> sequence-sharded full heads; k, v: replicated
+        q = all_to_all_dim(dense(xm, wq, cfg), M, 1, 2, mesh).reshape(b, s_loc, hkv, rep, hd)
+        k = all_gather_dim(dense(src, wk, cfg), M, 2, mesh).reshape(b, -1, hkv, hd)
+        v = all_gather_dim(dense(src, wv, cfg), M, 2, mesh).reshape(b, -1, hkv, hd)
+        q, k = _qk_rope(p, q, k, positions[row0:row0 + s_loc], cfg, rope_on=not cross,
+                        k_positions=positions)
+        new_cache = None
+        keys, vals = k, v
+        if cache is not None:
+            ck, cv = cache
+            nl = ck.shape[1]
+            _write_prefill(ck, cv, k, v, 0, r * nl, nl * p_)
+            new_cache = (ck, cv)
+            if s <= nl * p_:                  # the attention reads the cache's dtype
+                keys, vals = k.to(ck.dtype), v.to(cv.dtype)
+        if cross:
+            out = _sdpa(q, keys, vals, causal=False, window=cfg.window, q_offset=row0)
+        elif q.requires_grad:
+            out = _sdpa_manual(q, keys, vals, ctx, causal=causal, window=cfg.window)
+        else:
+            # the rank's rows through the flash kernel; causal: against the
+            # keys up to its last row, to which the rows are end-aligned
+            end = row0 + s_loc if causal else keys.shape[1]
+            out = _flash(q, keys[:, :end], vals[:, :end], causal=causal, window=cfg.window)
+        # sequence-sharded -> feature-sharded for the row-parallel wo
+        out = all_to_all_dim(out.reshape(b, s_loc, hq * hd), M, 2, 1, mesh)
+        return reduce_sum(dense(out, wo, cfg), M, mesh), new_cache
+
+    # q replicated: the rank's q, k, v columns gathered in one allGatherD
+    nq, nk = wq.shape[1], wk.shape[1]
+    if cross:
+        q = all_gather_dim(dense(xm, wq, cfg), M, 2, mesh)
+        k, v = all_gather_dim(torch.cat([dense(src, wk, cfg), dense(src, wv, cfg)], 2), M, 2,
+                              mesh).unflatten(2, (p_, 2 * nk)).split(nk, 3)
+    else:
+        g = all_gather_dim(torch.cat([dense(xm, wq, cfg), dense(xm, wk, cfg),
+                                      dense(xm, wv, cfg)], 2), M, 2, mesh)
+        q, k, v = g.unflatten(2, (p_, nq + 2 * nk)).split([nq, nk, nk], 3)
+    q = q.flatten(2).reshape(b, s, hkv, rep, hd)
+    k = k.flatten(2).reshape(b, -1, hkv, hd)
+    v = v.flatten(2).reshape(b, -1, hkv, hd)
+    q, k = _qk_rope(p, q, k, positions, cfg, rope_on=not cross)
+    new_cache = None
+    if cross:
+        out = _sdpa(q, k, v, causal=False, window=cfg.window, q_offset=0)
+    elif block_tables is not None:
+        out, new_cache = _paged(q, k, v, cache, cache_pos, block_tables, cfg)
+    elif cache is not None:
+        ck, cv = cache                        # this rank's slots of each row
+        nl = ck.shape[1]
+        lk, lo = nl * p_, r * nl
+        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+        if s == 1 and not per_row:
+            # a scalar position: JAX's dynamic_update_slice clamp, then per row
+            cache_pos = torch.as_tensor(min(max(int(cache_pos), 0), lk - 1),
+                                        device=x.device).expand(b)
+            per_row = True
+        if per_row:
+            # the token is written only on the rank that owns its slot
+            _write_rows(ck, cache_pos - lo, k[:, 0])
+            _write_rows(cv, cache_pos - lo, v[:, 0])
+        else:
+            _write_prefill(ck, cv, k, v, cache_pos, lo, lk)
+        new_cache = (ck, cv)
+        if s > lk:
+            # prefill longer than the ring: the full in-flight k/v, as on
+            # one process
+            out = _flash(q, k, v, causal=True, window=cfg.window)
+        elif cfg.window is not None and lk == cfg.window and s == 1:
+            valid = torch.clamp(positions[..., -1] + 1, max=lk)
+            out = _sdpa_split(q, ck, cv, ctx, causal=False, window=None, q_offset=0,
+                              k_offset=lo, kv_len_valid=valid)
+        elif isinstance(cache_pos, int) and cache_pos == 0:
+            # a fused prefill from 0 whose S does not split over ``model``:
+            # every rank holds the whole k/v, read in the cache's dtype as
+            # the one-process path reads its rows
+            out = _flash(q, k.to(ck.dtype), v.to(cv.dtype), causal=True, window=cfg.window)
+        else:
+            out = _sdpa_split(q, ck, cv, ctx, causal=True, window=cfg.window,
+                              q_offset=cache_pos, k_offset=lo)
+    elif q.requires_grad:
+        out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
+    else:
+        out = _flash(q, k, v, causal=causal, window=cfg.window)
+    # replicated -> the rank's feature columns for the row-parallel wo
+    out = out.reshape(b, s, hq * hd).narrow(2, r * (hq * hd // p_), hq * hd // p_)
+    return reduce_sum(dense(out, wo, cfg), M, mesh), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,11 @@ on its local parameter blocks and batch rows and returns its logits block
 (vocabulary-split over ``model`` under tensor parallelism); the layers
 issue the collectives (``models/layers.py``, ``models/moe.py``).
 ``init(shard=)`` keeps each leaf's block as soon as its group is drawn, so
-a rank never holds the whole tree.  The recurrent kinds run on one process
-only (their blocks raise under a ctx: ROADMAP queue 1, item 6).
+a rank never holds the whole tree.  The serving calls take a ctx too:
+``init_cache(ctx=)`` builds this rank's block of every cache leaf
+(``launch/specs.py::cache_specs``), and ``prefill``, ``prefill_paged`` and
+``decode_step`` run on the rank's batch rows and cache blocks and return
+its logits block; the paged arenas are whole on every rank.
 """
 from __future__ import annotations
 
@@ -53,14 +56,6 @@ Cache = List[Any]            # per layer: (K, V) for attention kinds, a dict of 
 ATTN_KINDS = ("attn", "attn_moe")
 # the parameter groups JAX stacks (over periods, or over layers for enc-dec)
 STACKED = ("layers", "enc_layers", "dec_layers")
-
-
-def refuse_recurrent_ctx(cfg: ModelConfig, ctx) -> None:
-    """A pattern with recurrent kinds runs on one process only: refused
-    under a mesh ctx before any collective (ROADMAP queue 1, item 6)."""
-    kinds = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
-    if kinds:
-        S.refuse_ctx(ctx, f"{cfg.name}'s {'/'.join(kinds)} blocks")
 
 
 def kind_of(cfg: ModelConfig, i: int) -> str:
@@ -231,7 +226,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
     if ctx is not None:
-        refuse_recurrent_ctx(cfg, ctx)
         if ctx.seq_parallel:
             raise NotImplementedError("a sequence-parallel residual (ctx.seq_parallel) is "
                                       "not ported (ROADMAP queue 1, item 8)")
@@ -269,14 +263,18 @@ def _constrain(h: torch.Tensor, ctx) -> torch.Tensor:
 # Serving
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
-               dtype: torch.dtype = torch.bfloat16) -> Cache:
+               dtype: torch.dtype = torch.bfloat16, ctx=None) -> Cache:
     """One entry per layer: a (K, V) pair of ``(batch, kv_len, kv_heads,
     hd)`` zero rows for an attention kind (``kv_len = min(max_len,
     window)`` for SWA: a ring), in ``dtype`` (bf16 whatever the model dtype,
     as in the JAX package); the recurrent kinds' state: the Mamba2 conv
     window in ``dtype`` and its SSM state in f32 (plus the shared
     attention's K/V at ``mamba2_attn``), the mLSTM state and the sLSTM's c,
-    n (0) and m (-1e30) in f32."""
+    n (0) and m (-1e30) in f32.  Under ``ctx``: this rank's block of each
+    leaf, by ``cache_specs``."""
+    if ctx is not None:
+        return local_cache(cfg, init_cache(cfg, batch, max_len, device="meta", dtype=dtype),
+                           ctx, device)
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
     shp = (batch, kv_len, cfg.n_kv_heads, cfg.hd)
 
@@ -301,6 +299,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
     return [one(kind_of(cfg, i)) for i in range(cfg.n_layers)]
 
 
+def local_cache(cfg: ModelConfig, like: Cache, ctx, device) -> Cache:
+    """Zeros (the sLSTM stabiliser's ``m`` at -1e30) in this rank's block
+    shapes (``launch.specs.block_shapes``) of the global cache ``like``
+    (``meta`` tensors will do)."""
+    from repro_torch.launch.specs import block_shapes
+    out = [torch.full(shape, X.M_INIT if path[-1] == "m" else 0.0, dtype=leaf.dtype,
+                      device=device)
+           for (path, leaf), shape in zip(leaves_with_path(like),
+                                          block_shapes(cfg, ctx, like))]
+    return tree_unflatten(like, out)
+
+
 def supports_fused_prefill(cfg: ModelConfig) -> bool:
     """True when ``prefill`` handles arbitrary (right-padded, any-length)
     prompts: pure-attention patterns, where causal masking makes end-padding
@@ -311,17 +321,17 @@ def supports_fused_prefill(cfg: ModelConfig) -> bool:
 
 
 def _layers(params: Params, h: torch.Tensor, positions, cfg: ModelConfig, cache: Cache,
-            cache_pos, block_tables) -> torch.Tensor:
+            cache_pos, block_tables, ctx=None) -> torch.Tensor:
     """Every layer over ``h`` with its cache entry, replaced in ``cache``."""
     shared_attn = params.get("shared_attn")
     for i, p in enumerate(params["layers"]):
         h, cache[i], _ = _block_apply(kind_of(cfg, i), p, h, positions, cfg, cache[i],
-                                      cache_pos, block_tables, shared_attn)
+                                      cache_pos, block_tables, shared_attn, ctx)
     return h
 
 
 def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig, *,
-            length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+            length: Optional[torch.Tensor] = None, ctx=None) -> Tuple[torch.Tensor, Cache]:
     """Cache-writing full-sequence forward: one fused call replaces a
     prompt-length loop of decode steps.  tokens (B, S) start at position 0;
     every attention layer writes the K/V of all S tokens into ``cache`` and
@@ -329,29 +339,30 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
     chunk scan's (the whole S must be real tokens).  ``length``: optional
     (B,) true prompt lengths of a right-padded batch (pad entries are
     causally invisible; attention patterns only).  Returns (last-position
-    logits (B, V) f32, cache)."""
+    logits (B, V) f32, cache).  ``ctx``: the rank's rows and cache blocks
+    in, its logits block (B/dp, V/tp) out."""
     b, s = tokens.shape
     if length is not None:
         if not supports_fused_prefill(cfg):
             raise NotImplementedError(
                 "padded fused prefill needs a causally-maskable pattern; "
                 f"{cfg.block_pattern} carries recurrent state")
-        ring = cache[0][0].shape[1]
+        ring = cache[0][0].shape[1] * (ctx.model_size if ctx is not None else 1)
         if s > ring:
             # the trailing-window ring write would keep pad K/V and drop
             # real tokens; unpadded (length=None) overflow is fine
             raise NotImplementedError(
                 f"right-padded prefill bucket {s} exceeds the cache ring "
                 f"{ring}; cap the pad bucket at the attention window")
-    h = L.embed(params["embed"], tokens, cfg)
-    h = _layers(params, h, torch.arange(s, device=tokens.device), cfg, cache, 0, None)
+    h = L.embed(params["embed"], tokens, cfg, ctx)
+    h = _layers(params, h, torch.arange(s, device=tokens.device), cfg, cache, 0, None, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
     if length is None:
         h_last = h[:, -1]
     else:
         idx = torch.as_tensor(length, device=h.device).long().expand(b) - 1
         h_last = h[torch.arange(b, device=h.device), idx]
-    return L.logits(params["embed"], h_last[:, None], cfg)[:, 0], cache
+    return L.logits(params["embed"], h_last[:, None], cfg, ctx)[:, 0], cache
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
@@ -366,7 +377,8 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block: int, *,
                      device="cuda", dtype: torch.dtype = torch.bfloat16) -> Cache:
     """One (K, V) pair of ``(n_blocks, block, kv_heads, hd)`` page arenas per
     layer, zero-filled.  K/V are stored in bf16 whatever the model dtype, as
-    in the JAX package."""
+    in the JAX package.  Under a mesh ctx every rank holds the whole arenas
+    (the reference sets no constraint on them)."""
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged KV cache needs a pure-attention, no-SWA pattern; got "
@@ -379,35 +391,37 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block: int, *,
 
 def prefill_paged(params: Params, tokens: torch.Tensor, cache: Cache,
                   cfg: ModelConfig, *, pos0: int, block_tables: torch.Tensor,
-                  length: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+                  length: Optional[int] = None, ctx=None) -> Tuple[torch.Tensor, Cache]:
     """One chunked-prefill slice: tokens (1, C) land at absolute positions
     ``pos0..pos0+C-1`` of one request's paged sequence (pages named by
     ``block_tables`` (1, P)), writing K/V into the arenas and attending
     causally over everything written so far.  ``length``: true token count
     of a right-padded final chunk.  Returns (logits at the chunk's last real
-    token (1, V) f32, cache)."""
+    token (1, V) f32, cache).  ``ctx``: as ``prefill``'s."""
     b, s = tokens.shape
-    h = L.embed(params["embed"], tokens, cfg)
+    h = L.embed(params["embed"], tokens, cfg, ctx)
     h = _layers(params, h, pos0 + torch.arange(s, device=tokens.device), cfg, cache, pos0,
-                block_tables)
+                block_tables, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
     last = (length if length is not None else s) - 1
-    return L.logits(params["embed"], h[:, last:last + 1], cfg)[:, 0], cache
+    return L.logits(params["embed"], h[:, last:last + 1], cfg, ctx)[:, 0], cache
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Tensor,
-                cfg: ModelConfig, *, block_tables: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                cfg: ModelConfig, *, block_tables: Optional[torch.Tensor] = None,
+                ctx=None) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  token (B,) int; pos: a scalar absolute position,
     or a (B,) tensor of per-row positions (continuous-batching slots advance
     independently).  Without ``block_tables`` the cache is the end-aligned
     rows (SWA: a ring, written at ``pos % window``) and the recurrent
     state; ``block_tables`` (B, P): the paged cache, each row addressing
-    its own page chain.  Returns (logits (B, V) f32, cache)."""
+    its own page chain.  Returns (logits (B, V) f32, cache).  ``ctx``: as
+    ``prefill``'s (the rank's rows of ``token``, ``pos`` and
+    ``block_tables``)."""
     pos = torch.as_tensor(pos, device=token.device)
-    h = L.embed(params["embed"], token[:, None], cfg)          # (B, 1, d)
+    h = L.embed(params["embed"], token[:, None], cfg, ctx)     # (B, 1, d)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     cache_pos = pos if cfg.window is None else pos % cfg.window
-    h = _layers(params, h, positions, cfg, cache, cache_pos, block_tables)
+    h = _layers(params, h, positions, cfg, cache, cache_pos, block_tables, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
-    return L.logits(params["embed"], h, cfg)[:, 0], cache
+    return L.logits(params["embed"], h, cfg, ctx)[:, 0], cache

@@ -21,7 +21,7 @@ import warnings
 from typing import Any, Optional, Tuple
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.mesh import AbstractMesh, P, ProcessMesh, local_block
+from repro_torch.core.mesh import AbstractMesh, P, ProcessMesh, assemble, local_block
 from repro_torch.models.moe import MeshCtx
 from repro_torch.tree import leaves_with_path, tree_map, tree_unflatten
 
@@ -252,6 +252,23 @@ def shard_params(params: Tree, cfg: ModelConfig, ctx: MeshCtx) -> Tree:
     leaves: ``core.mesh.local_block``)."""
     return tree_map(lambda x, s: local_block(x, s, ctx.mesh), params,
                     param_specs(params, cfg, ctx))
+
+
+def shard_cache(cache: Tree, cfg: ModelConfig, ctx: MeshCtx) -> Tree:
+    """This rank's block of every leaf of a whole end-aligned decode cache
+    under ``launch.specs.cache_specs`` (copies: the layers write caches in
+    place)."""
+    from repro_torch.launch.specs import cache_specs
+    return tree_map(lambda x, s: local_block(x, s, ctx.mesh).clone(), cache,
+                    cache_specs(cfg, ctx, cache))
+
+
+def gather_cache(cache: Tree, cfg: ModelConfig, ctx: MeshCtx, like: Tree) -> Tree:
+    """The inverse of ``shard_cache``: every rank gets the whole cache of
+    the rank blocks ``cache`` (``like``: the whole cache's shapes, ``meta``
+    tensors will do).  Collective over the mesh."""
+    from repro_torch.launch.specs import cache_specs
+    return tree_map(lambda x, s: assemble(x, s, ctx.mesh), cache, cache_specs(cfg, ctx, like))
 
 
 def opt_specs(param_spec_tree: Tree, scatter_spec_tree: Optional[Tree] = None) -> Tree:

@@ -18,9 +18,17 @@ split (an FSDP leaf's was reduce-scattered by its gather's transpose), by
 an all-reduce, or, in the ZeRO step, by a reduce-scatter onto the leaf's
 ``scatter_specs`` layout.  The loss is a vocab-parallel cross-entropy when
 the logits are split over ``model``.
+
+A serve step built with a ctx runs inside one rank too: it takes the
+global token, position and block-table rows (every rank the same), cuts
+them to the rank's batch rows, runs the model on its cache blocks
+(``models/transformer.py``) and gathers the logits over the vocabulary and
+the batch axes, so every rank returns the same global logits (or greedy
+tokens).  An enc-dec prefill returns the encoder output gathered likewise.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Callable, Optional, Tuple
 
@@ -28,7 +36,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.config import ModelConfig, ParallelConfig, TrainConfig, torch_dtype
-from repro_torch.core.dseq import reduce_sum
+from repro_torch.core.dseq import all_gather_dim, reduce_sum
 from repro_torch.core.mesh import local_block
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
@@ -265,11 +273,7 @@ def _make_mesh_step(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig,
     gets a zero gradient and is reduced like the others), the reduction's
     and the update's."""
     mesh = ctx.mesh
-    if cfg.enc_dec:
-        raise NotImplementedError("enc-dec training under a mesh ctx is not ported "
-                                  "(ROADMAP queue 1, item 6)")
-    T.refuse_recurrent_ctx(cfg, ctx)
-    meta = T.init(cfg, None)
+    meta = (E.init if cfg.enc_dec else T.init)(cfg, None)
     pspec_tree = param_specs(meta, cfg, ctx)
     sspec_tree = scatter_specs(meta, cfg, ctx) if zero else pspec_tree
     pspecs, sspecs = leaves(pspec_tree), leaves(sspec_tree)
@@ -325,13 +329,11 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
         params = (E.init if cfg.enc_dec else T.init)(cfg, generator)
         opt_params = params
     else:
-        if cfg.enc_dec:
-            raise NotImplementedError("enc-dec training under a mesh ctx is not ported "
-                                      "(ROADMAP queue 1, item 6)")
         specs = train_state_shardings(cfg, pcfg, ctx, abstract_train_state(cfg, pcfg))
         by_path = dict(leaves_with_path(specs["params"]))
-        params = T.init(cfg, generator, shard=lambda path, leaf: local_block(
-            leaf, by_path[path], ctx.mesh).clone())
+        params = (E.init if cfg.enc_dec else T.init)(cfg, generator, shard=lambda path, leaf:
+                                                     local_block(leaf, by_path[path],
+                                                                 ctx.mesh).clone())
         # the moments (and master copy) live in their own layout: the rank's
         # part of its parameter block (all of it but under ZeRO)
         opt_params = tree_map(lambda p, ps, ms: local_block(p, scatter_part(ms, ps), ctx.mesh),
@@ -368,71 +370,119 @@ def train_state_shardings(cfg: ModelConfig, pcfg: ParallelConfig, ctx: MeshCtx,
 # ---------------------------------------------------------------------------
 # Serve steps
 # ---------------------------------------------------------------------------
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def local_rows(t, ctx: Optional[MeshCtx]):
+    """The rank's block of the leading (batch) dim of a global ``t`` (a
+    tensor; anything else passes), split over the ctx's batch axes."""
+    if ctx is None or not torch.is_tensor(t) or t.dim() == 0 or not ctx.batch_axes:
+        return t
+    n = ctx.mesh.size(ctx.batch_axes)
+    if t.shape[0] % n:
+        raise ValueError(f"batch {t.shape[0]} does not split {n} ways over "
+                         f"{ctx.batch_axes}")
+    rows = t.shape[0] // n
+    return t.narrow(0, ctx.mesh.index(ctx.batch_axes) * rows, rows)
+
+
+def global_rows(t: torch.Tensor, ctx: MeshCtx, cfg: Optional[ModelConfig] = None
+                ) -> torch.Tensor:
+    """The inverse of ``local_rows`` (every rank gets the global value);
+    with ``cfg``, ``t`` is a logits block whose vocabulary may be split
+    over ``model`` too, and is gathered there first."""
+    mesh = ctx.mesh
+    vaxis = L.vocab_axis(cfg, ctx) if cfg is not None else None
+    if vaxis is not None:
+        t = all_gather_dim(t, vaxis, -1, mesh)
+    if ctx.batch_axes:
+        t = all_gather_dim(t, ctx.batch_axes, 0, mesh)
+    return t
+
+
+def _in_ctx(ctx: Optional[MeshCtx]):
+    return ctx.mesh if ctx is not None else contextlib.nullcontext()
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: Optional[MeshCtx] = None) -> Callable:
     """Fused prefill ``(params, batch, cache) -> (last_logits (B, V),
     cache)``: one cache-writing full-sequence forward per prompt.  ``batch``
     holds ``tokens`` (B, S) and may hold ``length``, the per-row true prompt
     lengths of right-padded prompts (pad entries are causally invisible).
     An enc-dec model encodes ``batch["frames"]`` first and returns
-    ``(last_logits, cache, encoder output)``: the decode steps need it."""
+    ``(last_logits, cache, encoder output)``: the decode steps need it.
+    ``ctx``: the module docstring (``cache`` is the rank's blocks)."""
 
     @torch.no_grad()
     def prefill(params, batch, cache):
-        length = batch.get("length")
-        if cfg.enc_dec:
-            enc = E.encode(params, batch["frames"], cfg)
-            logits, cache = E.decode_prefill(params, batch["tokens"], enc, cache, cfg,
-                                             length=length)
-            return logits, cache, enc
-        return T.prefill(params, batch["tokens"], cache, cfg, length=length)
+        b = {k: local_rows(v, ctx) for k, v in batch.items()}
+        with _in_ctx(ctx):
+            length = b.get("length")
+            if cfg.enc_dec:
+                enc = E.encode(params, b["frames"], cfg, ctx=ctx)
+                logits, cache = E.decode_prefill(params, b["tokens"], enc, cache, cfg,
+                                                 length=length, ctx=ctx)
+                if ctx is None:
+                    return logits, cache, enc
+                return global_rows(logits, ctx, cfg), cache, global_rows(enc, ctx)
+            logits, cache = T.prefill(params, b["tokens"], cache, cfg, length=length, ctx=ctx)
+            return (logits if ctx is None else global_rows(logits, ctx, cfg)), cache
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, *, return_logits: bool = False,
-                     paged: bool = False) -> Callable:
+                     paged: bool = False, ctx: Optional[MeshCtx] = None) -> Callable:
     """Decode step: greedy int32 tokens by default, or the f32 logits with
     ``return_logits`` so the scheduler can sample.  ``paged`` selects the
     step's form: ``(params, tok, cache, pos, block_tables)`` over the shared
     page arena, or, with ``paged=False``, the end-aligned ``(params, tok,
     cache, pos)`` over per-slot cache rows; an enc-dec model's step takes
-    the encoder output after ``pos``."""
+    the encoder output after ``pos``.  ``ctx``: the module docstring."""
     if paged and cfg.enc_dec:
         raise NotImplementedError("paged decode is decoder-only")
 
     def _out(logit):
+        if ctx is not None:
+            logit = global_rows(logit, ctx, cfg)
         if return_logits:
             return logit.float()
         return torch.argmax(logit, dim=-1).to(torch.int32)
 
     @torch.no_grad()
     def decode(params, token, cache, pos, enc_out=None):
-        if cfg.enc_dec:
-            logit, cache = E.decode_step(params, token, cache, pos, enc_out, cfg)
-        else:
-            logit, cache = T.decode_step(params, token, cache, pos, cfg)
-        return _out(logit), cache
+        token, pos, enc_out = (local_rows(t, ctx) for t in (token, pos, enc_out))
+        with _in_ctx(ctx):
+            if cfg.enc_dec:
+                logit, cache = E.decode_step(params, token, cache, pos, enc_out, cfg, ctx=ctx)
+            else:
+                logit, cache = T.decode_step(params, token, cache, pos, cfg, ctx=ctx)
+            return _out(logit), cache
 
     @torch.no_grad()
     def decode_paged(params, token, cache, pos, block_tables):
-        logit, cache = T.decode_step(params, token, cache, pos, cfg,
-                                     block_tables=block_tables)
-        return _out(logit), cache
+        token, pos, block_tables = (local_rows(t, ctx) for t in (token, pos, block_tables))
+        with _in_ctx(ctx):
+            logit, cache = T.decode_step(params, token, cache, pos, cfg,
+                                         block_tables=block_tables, ctx=ctx)
+            return _out(logit), cache
 
     return decode_paged if paged else decode
 
 
-def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
+def make_chunk_prefill_step(cfg: ModelConfig, ctx: Optional[MeshCtx] = None) -> Callable:
     """Chunked-prefill step ``(params, tokens (1, chunk), cache, pos0,
     block_tables (1, P), length) -> (last_logits (1, V), cache)``: one
     fixed-shape slice of one request's prompt per call
-    (``models.transformer.prefill_paged``)."""
+    (``models.transformer.prefill_paged``).  ``ctx``: the module docstring
+    (its batch axes must divide 1: ``launch.specs.restrict_batch``)."""
     if cfg.enc_dec:
         raise NotImplementedError("chunked prefill is decoder-only")
 
     @torch.no_grad()
     def chunk_prefill(params, tokens, cache, pos0, block_tables, length):
-        return T.prefill_paged(params, tokens, cache, cfg, pos0=pos0,
-                               block_tables=block_tables, length=length)
+        tokens, block_tables = local_rows(tokens, ctx), local_rows(block_tables, ctx)
+        with _in_ctx(ctx):
+            logits, cache = T.prefill_paged(params, tokens, cache, cfg, pos0=pos0,
+                                            block_tables=block_tables, length=length,
+                                            ctx=ctx)
+            return (logits if ctx is None else global_rows(logits, ctx, cfg)), cache
 
     return chunk_prefill

@@ -132,11 +132,41 @@ def test_decay_mask_follows_the_stacked_encoder_and_decoder():
     assert not any(mask["enc_norm"].values()) and not any(mask["final_norm"].values())
 
 
-def test_encdec_under_a_ctx_raises():
+def _encdec_ctx_rank(device, params, frames, toks):
+    """One of 2 ranks (mesh (1, 2)): encode and the teacher-forced forward
+    under a ctx, the frames and tokens split over ``model`` in the
+    sequence-sharded attention; the logits gathered over the vocabulary."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import steps as S
+    from repro_torch.parallel.sharding import make_ctx, shard_params
     _, cfg = _cfgs()
-    p = E.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        E.encode(p, torch.zeros(1, 4, cfg.d_model), cfg, ctx=object())
+    mesh = make_local_mesh(2)
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    p = shard_params(params_from_jax(params, cfg, device="cpu"), cfg, ctx)
+    with mesh:
+        enc = E.encode(p, torch.from_numpy(frames), cfg, ctx=ctx)
+        logits, _ = E.forward(p, torch.from_numpy(frames), torch.from_numpy(toks), cfg, ctx=ctx)
+        return enc, S.global_rows(logits, ctx, cfg)
+
+
+def test_encdec_under_a_ctx_raises():
+    """Under a mesh ctx the model once raised; it now runs the ported path:
+    on 2 gloo CPU ranks ``encode`` and ``forward`` give JAX's single-device
+    encoder output and logits (f32) on every rank."""
+    from repro_torch.core.mesh import launch
+    jcfg, _ = _cfgs()
+    jp = JE.init(jax.random.PRNGKey(0), jcfg)
+    r = np.random.RandomState(3)
+    frames = r.randn(B, T_ENC, jcfg.d_model).astype(np.float32)
+    toks = r.randint(0, jcfg.vocab, (B, LP + 1)).astype(np.int32)
+    want_enc = JE.encode(jp, jnp.asarray(frames), jcfg)
+    want, _ = JE.forward(jp, jnp.asarray(frames), jnp.asarray(toks), jcfg)
+    for enc, logits in launch(2, _encdec_ctx_rank, jax.tree.map(np.asarray, jp), frames, toks,
+                              device="cpu", timeout=300):
+        np.testing.assert_allclose(enc, np.asarray(want_enc), **TOL["float32"])
+        np.testing.assert_allclose(logits, np.asarray(want), **TOL["float32"])
 
 
 def test_pipeline_frames_match_jax():

@@ -149,27 +149,31 @@ def test_submit_validates_with_named_limits(tiny):
 
 def test_unported_engine_raises_naming_the_roadmap(tiny):
     """The end-aligned engine is ported with its recurrent per-token prefill
-    fallback (``test_torch_families.py``); the recurrent blocks under a mesh
-    ctx, and the serve engine's cache under one, are not."""
+    fallback (``test_torch_families.py``), and so are the recurrent blocks
+    and the serve engine under a mesh ctx (``test_torch_serve_mesh.py``,
+    ``test_torch_engines_mesh.py``).  What is left raises before any
+    collective: the sequence-parallel residual (ROADMAP queue 1, item 8),
+    and, under a ctx, an end-aligned cache whose length the model axis does
+    not split (the layers read their slots' offset from the split)."""
     from repro_torch.config import ParallelConfig as PortParallelConfig
     from repro_torch.config import SSMConfig
     from repro_torch.core.mesh import AbstractMesh
-    from repro_torch.models import layers as L
-    from repro_torch.models import ssm
     from repro_torch.parallel.sharding import make_ctx
     _, cfg, _, params = tiny
     recurrent = cfg.replace(block_pattern=("mamba2",), ssm=SSMConfig(d_state=8, head_dim=16))
     assert not Scheduler(recurrent, params, slots=1, max_len=8).fused
-    ctx = make_ctx(AbstractMesh((1, 2), ("data", "model")),
-                   PortParallelConfig(fsdp_params=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), recurrent, ctx=ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.mamba2_block({}, torch.zeros(1, 4, cfg.d_model), recurrent, ctx=ctx)
-    cache = T.init_cache(cfg, 1, 8, device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.attention(params["layers"][0]["attn"], torch.zeros(1, 1, cfg.d_model),
-                    torch.arange(1), cfg, cache=cache, cache_pos=0, ctx=ctx)
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    ctx = make_ctx(mesh, PortParallelConfig(fsdp_params=False))
+    sp = make_ctx(mesh, PortParallelConfig(fsdp_params=False, sequence_parallel=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=sp)
+    with pytest.raises(ValueError, match="does not split 2 ways"):
+        T.init_cache(cfg, 1, 9, device="cpu", ctx=ctx)
+    with pytest.raises(ValueError, match="must be multiples of 2"):
+        Scheduler(cfg, params, slots=2, max_len=9, ctx=ctx)
+    # the paged arenas are whole on every rank; the recurrent state splits
+    assert T.init_cache(recurrent, 2, 9, device="cpu", ctx=ctx)[0]["mamba"]["ssm"].shape[1] == \
+        T.init_cache(recurrent, 2, 9, device="cpu")[0]["mamba"]["ssm"].shape[1] // 2
 
 
 def test_sampling_is_seeded_and_top_p_narrows_to_greedy():

@@ -168,7 +168,43 @@ def test_mamba2_init_keeps_f32_leaves(block):
         assert p[name].dtype == torch.float32, name
 
 
+def _mamba2_ctx_rank(device, p, xs):
+    """One of 2 ranks (mesh (1, 2)): the block under a ctx, its 8 heads and
+    80 conv channels split over ``model``, through a prefill and decode
+    steps from a zero cache (``cache_specs``'s blocks)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharding import make_ctx, shard_cache, shard_params
+    cfg = config.ModelConfig(**KW, ssm=config.SSMConfig(**SSM))
+    mesh = make_local_mesh(2)
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    layer = {"mamba": {k: (torch.from_numpy(v) if not isinstance(v, dict) else
+                           {n: torch.from_numpy(t) for n, t in v.items()}) for k, v in p.items()}}
+    local = shard_params({"layers": [layer]}, cfg, ctx)["layers"][0]["mamba"]
+    cache = shard_cache([{"mamba": S.mamba2_init_cache(xs[0].shape[0], cfg, "cpu",
+                                                       torch.float32)}], cfg, ctx)[0]["mamba"]
+    ys = []
+    with mesh:
+        for x in xs:
+            y, cache = S.mamba2_block(local, torch.from_numpy(x), cfg, cache=cache, ctx=ctx)
+            ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
 def test_mamba2_under_a_ctx_raises(block):
-    _, cfg, _, p = block
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        S.mamba2_block(p, torch.zeros(1, 4, 32), cfg, ctx=object())
+    """Under a mesh ctx the block once raised; it now runs the ported path
+    (tensor-parallel, the engine on the rank's heads): on 2 gloo CPU ranks a
+    fused prefill and two decode steps give JAX's single-device outputs on
+    every rank."""
+    from repro_torch.core.mesh import launch
+    jcfg, cfg, jp, p = block
+    xs = [_x(2, 8, 11), _x(2, 1, 12), _x(2, 1, 13)]
+    cache = {"conv": jnp.zeros((2, 3, 80)), "ssm": jnp.zeros((2, 8, 8, 8))}
+    want = []
+    for x in xs:
+        y, cache = JS.mamba2_block(jp, jnp.asarray(x), jcfg, cache=cache)
+        want.append(np.asarray(y))
+    nump = {k: (v.numpy() if torch.is_tensor(v) else {n: t.numpy() for n, t in v.items()})
+            for k, v in p.items()}
+    for got in launch(2, _mamba2_ctx_rank, nump, xs, device="cpu", timeout=300):
+        np.testing.assert_allclose(got, np.concatenate(want, axis=1), **BLOCK_TOL)

@@ -92,19 +92,22 @@ def test_registry_shapes_and_defaults_equal_to_jax():
 
 def test_non_attn_families_still_raise():
     """The other families build and train on one process
-    (``test_torch_families.py``); under a mesh ctx the recurrent kinds and
-    the enc-dec model still raise, before any collective (ROADMAP queue 1,
-    item 6)."""
+    (``test_torch_families.py``) and, once raising here, under a mesh ctx
+    too: the train step of every family builds on the ctx (the steps
+    themselves run on gloo ranks in ``test_torch_engines_mesh.py``,
+    ``test_torch_encdec_mesh.py`` and ``test_torch_moe_mesh.py``), and the
+    state's specs cover every leaf of the family's tree."""
     from repro_torch.core.mesh import AbstractMesh
     from repro_torch.parallel.sharding import make_ctx
-    ctx = make_ctx(AbstractMesh((1, 2), ("data", "model")), ParallelConfig(fsdp_params=False))
+    pcfg = ParallelConfig(fsdp_params=False)
+    ctx = make_ctx(AbstractMesh((1, 2), ("data", "model")), pcfg)
     for arch in ("xlstm-1.3b", "zamba2-1.2b", "whisper-base", "mixtral-8x22b"):
         cfg = configs.reduced(configs.get(arch))
         T.init(cfg, torch.Generator().manual_seed(0))
-        if arch == "mixtral-8x22b":
-            continue                  # MoE on a mesh: test_torch_moe_mesh.py
-        with pytest.raises(NotImplementedError, match="item 6"):
-            S.make_train_step(cfg, ParallelConfig(fsdp_params=False), TrainConfig(), ctx)
+        assert callable(S.make_train_step(cfg, pcfg, TrainConfig(), ctx))
+        like = S.abstract_train_state(cfg, pcfg)
+        specs = S.train_state_shardings(cfg, pcfg, ctx, like)
+        assert len(leaves(specs["params"])) == len(leaves(like["params"])) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -410,21 +413,19 @@ def test_train_launcher_with_fault_injection(tmp_path):
 
 
 def test_launcher_refuses_what_it_cannot_do(tmp_path):
-    """What a mesh ctx still refuses: a cache (the serve engine on a mesh)
-    and the sequence-parallel residual, each before any collective; a
-    model axis that does not divide the ranks; and the CPU unless asked."""
+    """What a mesh ctx still refuses: the sequence-parallel residual, and a
+    serve cache whose length the model axis does not split, each before
+    any collective; a model axis that does not divide the ranks; and the
+    CPU unless asked."""
     from repro_torch.core.mesh import AbstractMesh
-    from repro_torch.models import layers as L
     from repro_torch.parallel.sharding import make_ctx
     _, cfg = _cfgs(n_layers=1)
     params = T.init(cfg, torch.Generator().manual_seed(0))
     mesh = AbstractMesh((1, 2), ("data", "model"))
     ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
-    x = torch.zeros(1, 4, cfg.d_model)
-    cache = T.init_cache(cfg, 1, 8, device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        L.attention(params["layers"][0]["attn"], x, torch.arange(4), cfg, cache=cache,
-                    cache_pos=0, ctx=ctx)
+    with pytest.raises(ValueError, match="does not split 2 ways"):
+        T.init_cache(cfg, 1, 7, device="cpu", ctx=ctx)
+    assert T.init_cache(cfg, 1, 8, device="cpu", ctx=ctx)[0][0].shape[1] == 4
     sp = make_ctx(mesh, ParallelConfig(fsdp_params=False, sequence_parallel=True))
     with pytest.raises(NotImplementedError, match="item 8"):
         T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=sp)

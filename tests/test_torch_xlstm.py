@@ -102,8 +102,54 @@ def test_mlstm_normaliser_channel_bounds_the_output(blocks):
     assert torch.isfinite(got.float()).all()
 
 
+def _xlstm_ctx_rank(device, dtype, p, xs):
+    """One of 2 ranks (mesh (1, 2)): each block under a ctx (the mLSTM's 2
+    heads and the sLSTM's 32 channels split over ``model``), a prefill and
+    a decode step from a zero cache (``cache_specs``'s blocks)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import make_ctx, shard_cache, shard_params
+    cfg = _cfgs(dtype)[1]
+    mesh = make_local_mesh(2)
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    layers = [{kind: {k: (torch.from_numpy(v) if not isinstance(v, dict) else
+                          {n: torch.from_numpy(t) for n, t in v.items()})
+                      for k, v in p[kind].items()}} for kind in ("mlstm", "slstm")]
+    local = shard_params({"layers": layers}, cfg, ctx)["layers"]
+    caches = shard_cache(T.init_cache(cfg, xs[0].shape[0], 8, device="cpu"), cfg, ctx)
+    out = {}
+    with mesh:
+        for i, (kind, fn) in enumerate((("mlstm", X.mlstm_block), ("slstm", X.slstm_block))):
+            cache, ys = caches[i][kind], []
+            for x in xs:
+                y, cache = fn(local[i][kind], torch.from_numpy(x).to(getattr(torch, dtype)), cfg,
+                              cache=cache, ctx=ctx)
+                ys.append(y.float())
+            out[kind] = torch.cat(ys, dim=1)
+    return out
+
+
 def test_xlstm_under_a_ctx_raises(blocks):
-    _, _, cfg, _, p = blocks
-    for fn, kind in ((X.mlstm_block, "mlstm"), (X.slstm_block, "slstm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-            fn(p[kind], torch.zeros(1, 4, 32), cfg, ctx=object())
+    """Under a mesh ctx the blocks once raised; they now run the ported
+    path: on 2 gloo CPU ranks a fused prefill and a decode step of the
+    mLSTM (the engine on the rank's head) and of the sLSTM (the recurrence
+    on the rank's channels) give JAX's single-device outputs on every rank."""
+    from repro_torch.core.mesh import launch
+    dtype, jcfg, cfg, jp, p = blocks
+    xs = [np.random.RandomState(21 + i).randn(2, n, 32).astype(np.float32)
+          for i, n in enumerate((8, 1))]
+    want = {}
+    for kind, fn, cache in (("mlstm", JX.mlstm_block, {"ssm": jnp.zeros((2, 2, 32, 33))}),
+                            ("slstm", JX.slstm_block, JX.slstm_init_cache(2, jcfg))):
+        ys = []
+        for x in xs:
+            y, cache = fn(jp[kind], jnp.asarray(x, dtype), jcfg, cache=cache)
+            ys.append(np.asarray(y, np.float32))
+        want[kind] = np.concatenate(ys, axis=1)
+    nump = {kind: {k: (v.float().numpy() if torch.is_tensor(v) else
+                       {n: t.float().numpy() for n, t in v.items()}) for k, v in p[kind].items()}
+            for kind in p}
+    for got in launch(2, _xlstm_ctx_rank, dtype, nump, xs, device="cpu", timeout=300):
+        for kind in ("mlstm", "slstm"):
+            _close(torch.from_numpy(got[kind]), want[kind], dtype)
