@@ -118,6 +118,18 @@ After 8, the trainer on a mesh of gloo ranks sharing ``cuda:0``:
                  (``launch.train.train_rank``) with the train phase's state,
                  data and TrainConfig, 3 steps: losses finite and within
                  2e-2 of the train phase's first three;
+  train tp sp -- on "train tp"'s launch, its job with ``sequence_parallel``:
+                 the residual between the layers is each rank's S/2 rows
+                 (all-gathers before the column-parallel products,
+                 reduce-scatters after the row-parallel ones), 3 steps,
+                 losses within 2e-2 of the train phase's; bytes staged a
+                 step, the share of the wall inside the collectives and the
+                 peak memory a rank beside "train tp"'s; then one no-grad
+                 forward of a batch on the same ranks: each rank's S/2
+                 query rows through the tensor-core flash kernel (launches
+                 a rank = 28, nothing else), each rank's kernel against its
+                 plain version on its own inputs (bf16 2e-2), rank 0's
+                 logits against the one-process bf16 ``forward`` (5e-2);
   train layouts -- full width, depth cut to 2 layers, f32 compute and
                  gradients, on 4 ranks (mesh 2 x 2), in a fresh process under
                  deterministic algorithms: TP with all-reduce, TP + FSDP with
@@ -153,8 +165,9 @@ the kernels' launch counts just before its run and reads them just after):
                  + 32 tokens through ``Scheduler(paged=True)`` (4 slots,
                  block 16, chunk 256): paged launches = decode steps; the
                  f32 oracle through chunked prefill and paged decode;
-  serve hybrid, serve xlstm -- Zamba2-1.2B and xLSTM-1.3B at full width
-                 and depth, 4 requests of 128 + 32 tokens on 2 slots through
+  serve hybrid, serve xlstm -- Zamba2-1.2B and xLSTM-1.3B at full width,
+                 depth cut to 19 of 38 and 24 of 48 layers (whole periods of
+                 their block patterns), 4 requests of 128 + 32 tokens on 2 slots through
                  the per-token recurrent prefill; the f32 oracle through
                  B=1 decode steps;
   serve encdec -- Whisper-base at full size: the flash kernel checked at
@@ -194,6 +207,15 @@ served run and read just after, in the rank):
                  in f32 arithmetic on the bf16 weights against the
                  one-process ``forward`` (relative RMS 1e-3), and in bf16
                  as served against the one-process bf16 path (5e-2);
+  serve ranks whole cache -- on "serve ranks"' launch and weights,
+                 Llama-3.2-3B served end-aligned with max_len 575 and bucket
+                 15, which 2 does not divide (4 requests of 512 + 63
+                 tokens): every rank holds, writes and scores every slot
+                 with no combine; flash launches a rank = admissions x 28,
+                 each rank's flash kernel against its plain version on its
+                 served inputs, request 0's bf16 logits teacher-forced
+                 against the one-process bf16 path (5e-2); tok/s, TTFT,
+                 staged bytes and peak memory a rank;
   serve ranks families -- Zamba2-1.2B (depth 7, 64 heads split over mesh
                  (1, 2)), Mixtral-8x22B (depth 2, EP over (1, 2), a
                  capacity no assignment overflows) and Whisper-base (mesh
@@ -1810,24 +1832,39 @@ def _print_ranks(tag, walls, peaks, staged, comm) -> None:
           flush=True)
 
 
-def phase_train_tp(cfg, ref_losses, link) -> None:
+def rank_train_tp(device, job, sp_job, tokens: np.ndarray) -> dict:
+    """One of the 2 ranks of "train tp" and "train tp sp", on one launch:
+    ``job``'s steps, then ``rank_train_sp``'s."""
+    from repro_torch.launch import train
+    return {"tp": train.train_rank(device, job), "sp": rank_train_sp(device, sp_job, tokens)}
+
+
+def phase_train_tp(cfg, ref_losses, link, dev: str = "cuda"):
     """Full-width, full-depth Llama-3.2-3B on 2 ranks sharing the card,
     mesh (1, 2), tensor parallelism 2, through the launcher's per-rank body
     (``launch.train.train_rank``) with ``phase_train``'s state, data and
     TrainConfig, stopped after 3 steps: losses finite and within MESH_TOL
-    of ``phase_train``'s first three."""
+    of ``phase_train``'s first three.  The same launch then runs "train tp
+    sp" (``rank_train_sp``; ``phase_train_tp_sp`` checks it).  Returns
+    (this phase's figures, the ranks' "train tp sp" results, its tokens)."""
     from repro_torch.core.mesh import launch
     from repro_torch.launch import train
     pcfg, tcfg, shape = _train_setup(cfg)
-    torch.cuda.empty_cache()
-    print(f"[train tp] this process before the launch: {torch.cuda.memory_allocated() / 1e9:.2f} "
-          f"GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
+    tokens = np.random.RandomState(11).randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+    _sync(dev)
+    if torch.device(dev).type == "cuda":
+        print(f"[train tp] this process before the launch: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_sp:
         job = train.RankJob(cfg, pcfg, dataclasses.replace(tcfg, checkpoint_dir=tmp), shape,
                             TP_STEPS, model_parallel=2, return_state=False)
+        sp_job = dataclasses.replace(job, pcfg=dataclasses.replace(pcfg, sequence_parallel=True),
+                                     tcfg=dataclasses.replace(tcfg, checkpoint_dir=tmp_sp))
         t0 = time.perf_counter()
-        res = launch(2, train.train_rank, job, device="cuda", timeout=1500)
+        both = launch(2, rank_train_tp, job, sp_job, tokens, device=dev, timeout=1500)
         wall = time.perf_counter() - t0
+    res = [r["tp"] for r in both]
     hist = res[0]["history"]
     losses = [h["loss"] for h in hist]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
@@ -1835,8 +1872,8 @@ def phase_train_tp(cfg, ref_losses, link) -> None:
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat={pcfg.remat}: losses "
           + ", ".join(f"{a:.4f} (one process {b:.4f}, relative {e:.1e})"
                       for a, b, e in zip(losses, ref_losses, rel))
-          + f", bound {MESH_TOL}; launch {wall:.1f} s (process start and init included)",
-          flush=True)
+          + f", bound {MESH_TOL}; launch {wall:.1f} s (process start, init and \"train tp sp\" "
+          f"included)", flush=True)
     _print_ranks("train tp", [max(r["history"][i]["time_s"] for r in res)
                               for i in range(len(hist))], [r["peak_bytes"] for r in res],
                  [[h["staged_bytes"] for h in r["history"]] for r in res],
@@ -1844,6 +1881,18 @@ def phase_train_tp(cfg, ref_losses, link) -> None:
     _print_prediction("train tp", _planner_times(cfg, (1, 2), link), _plan_label(pcfg, (1, 2)))
     if len(losses) != TP_STEPS or not all(np.isfinite(losses)) or not max(rel) <= MESH_TOL:
         fail(f"train tp: losses {losses} against one process's {ref_losses[:TP_STEPS]}")
+    return _rank_figures(res), [r["sp"] for r in both], tokens
+
+
+def _rank_figures(res: list) -> dict:
+    """Per rank, over the steps after the first: bytes staged a step, the
+    share of the step wall inside the collectives; and the peak memory."""
+    out = {}
+    for key, f in (("staged", lambda h: h["staged_bytes"]),
+                   ("comm_share", lambda h: h["comm_s"] / h["time_s"])):
+        out[key] = [float(np.mean([f(h) for h in r["history"][1:]])) for r in res]
+    out["peak"] = [r["peak_bytes"] or 0 for r in res]
+    return out
 
 
 def rank_train_layouts(device, cfg, layouts, tcfg, shape, ref_path) -> dict:
@@ -2017,7 +2066,10 @@ def layouts_body(link) -> None:
 MOE_ALIGNED_ARCH, MOE_ALIGNED_DEPTH = "mixtral-8x22b", 4    # 56 layers would be 282 GB
 MOE_PAGED_ARCH, MOE_PAGED_DEPTH = "kimi-k2-1t-a32b", 1      # 61 layers would be 2.1 TB
 KIMI_REQ, KIMI_PROMPT, KIMI_GEN = 4, 256, 32
-RECURRENT_ARCHS = {"zamba2-1.2b": "hybrid", "xlstm-1.3b": "xlstm"}   # full depth
+# arch -> (tag, depth): one of Zamba2's two 19-layer periods (both
+# ``mamba2_attn`` layers), three of xLSTM's six 8-layer periods (sLSTM
+# included); the full depths took 97-133 s of the script's 1200
+RECURRENT_ARCHS = {"zamba2-1.2b": ("hybrid", 19), "xlstm-1.3b": ("xlstm", 24)}
 REC_REQ, REC_PROMPT, REC_GEN, REC_SLOTS = 4, 128, 32, 2
 WHISPER_PROMPT, WHISPER_GEN, WHISPER_FRAMES = 4, 32, 1500
 FAMILY_ARCHS = ("mixtral-8x22b", "kimi-k2-1t-a32b", "zamba2-1.2b", "xlstm-1.3b",
@@ -2284,15 +2336,17 @@ def phase_serve_moe_paged() -> int:
 
 
 def phase_serve_recurrent(arch: str) -> None:
-    """Zamba2 / xLSTM at full width and depth through the end-aligned engine's
-    per-token recurrent prefill (no kernel on this path: decode attention
-    is ``_sdpa``, the engines are products and elementwise ops)."""
+    """Zamba2 / xLSTM at full width, depth ``RECURRENT_ARCHS``, through the
+    end-aligned engine's per-token recurrent prefill (no kernel on this
+    path: decode attention is ``_sdpa``, the engines are products and
+    elementwise ops)."""
     from repro_torch import configs
     from repro_torch.launch.scheduler import make_requests
-    cfg = configs.get(arch)
-    params = _family_init(cfg, cfg.n_layers)
+    tag, depth = RECURRENT_ARCHS[arch]
+    full = configs.get(arch)
+    cfg = full.replace(n_layers=depth)
+    params = _family_init(cfg, full.n_layers)
     reqs = make_requests(REC_REQ, REC_PROMPT, REC_GEN, cfg.vocab, stagger=STAGGER)
-    tag = RECURRENT_ARCHS[arch]
     out, counts = _serve_family(f"serve {tag}", cfg, params, reqs, 8, slots=REC_SLOTS,
                                 max_len=REC_PROMPT + REC_GEN)
     if out["prefills"] != REC_REQ or any(counts.values()):
@@ -2558,10 +2612,11 @@ def _sync(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _rank_setup(cfg, model: int, dev, seed: int = 0):
-    """This rank's mesh (world / model, model), ctx and parameter blocks: the
-    bf16 matrices of ``_family_init``'s seeded draw, each leaf cut to its
-    block as soon as its group is drawn."""
+def _rank_setup(cfg, model: int, dev, seed: int = 0, pcfg=None):
+    """This rank's mesh (world / model, model), ctx (``pcfg``, by default
+    tensor parallelism without FSDP) and parameter blocks: the bf16 matrices
+    of ``_family_init``'s seeded draw, each leaf cut to its block as soon as
+    its group is drawn."""
     from repro_torch.config import ParallelConfig
     from repro_torch.core.mesh import local_block
     from repro_torch.launch.mesh import make_local_mesh
@@ -2570,7 +2625,7 @@ def _rank_setup(cfg, model: int, dev, seed: int = 0):
     from repro_torch.parallel.sharding import make_ctx, param_specs
     from repro_torch.tree import leaves_with_path
     mesh = make_local_mesh(model)
-    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
+    ctx = make_ctx(mesh, pcfg if pcfg is not None else ParallelConfig(fsdp_params=False))
     init = E.init if cfg.enc_dec else T.init
     specs = dict(leaves_with_path(param_specs(init(cfg, None), cfg, ctx)))
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2649,12 +2704,12 @@ def _rank_serve(tag, cfg, params, ctx, reqs, **kw) -> dict:
 
 
 def _rank_path(cfg, params, ctx, seq: np.ndarray, prompt: int, gen: int, dev, paged=False,
-               f32=True):
+               f32=True, max_len=None):
     """The teacher-forced serve path under ``ctx`` in f32 arithmetic on the
     served bf16 weights (f32 cache), or (``f32=False``) as served, in bf16:
     a fused (or chunked) prefill of the first ``prompt`` tokens of ``seq``
-    and ``gen`` - 1 decode steps; the logits (gen, V), global on every
-    rank."""
+    and ``gen`` - 1 decode steps into a cache ``max_len`` long (default
+    ``prompt + gen``); the logits (gen, V), global on every rank."""
     from repro_torch.launch.specs import restrict_batch
     from repro_torch.models import transformer as T
     from repro_torch.parallel import steps as S
@@ -2679,7 +2734,8 @@ def _rank_path(cfg, params, ctx, seq: np.ndarray, prompt: int, gen: int, dev, pa
                 logits, cache = step(params, chunk, cache, lo, table, ln)
             decode = S.make_decode_step(cfg32, return_logits=True, paged=True, ctx=one)
         else:
-            cache = T.init_cache(cfg32, 1, prompt + gen, device=dev, dtype=cdt, ctx=one)
+            cache = T.init_cache(cfg32, 1, max_len or prompt + gen, device=dev, dtype=cdt,
+                                 ctx=one)
             logits, cache = S.make_prefill_step(cfg32, one)(params, {"tokens": toks[:, :prompt]},
                                                            cache)
             decode = S.make_decode_step(cfg32, return_logits=True, ctx=one)
@@ -2749,6 +2805,7 @@ def rank_serve(device, cfgs: dict) -> dict:
                                      paged=True)
     out["served_bf16"] = _rank_path(cfg, params, ctx, seq, PROMPT, RANK_ORACLE_GEN, dev,
                                     f32=False)
+    out["whole"] = rank_serve_whole(cfg, params, ctx, dev)
     del params
     _sync(dev)
     for arch in ("zamba2-1.2b", "mixtral-8x22b"):
@@ -3188,6 +3245,176 @@ def phase_train_families_ranks(dev: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# the sequence-parallel residual and the whole-cache serve layout, on gloo
+# ranks sharing ``cuda:0``
+SP_ROWS = 32                  # positions of rank 0's no-grad logits held against one process
+WHOLE_GEN, WHOLE_BUCKET = 63, 15   # max_len 512 + 63 = 575 and bucket 15: 2 divides neither
+
+
+def rank_train_sp(device, job, tokens: np.ndarray) -> dict:
+    """One of the 2 ranks of "train tp sp": ``job``'s steps through
+    ``launch.train.train_rank`` (``sequence_parallel``), then one no-grad
+    forward of ``tokens`` (the global batch: this rank's rows are all of
+    it, mesh (1, 2)) under the same layout on the seeded bf16 weights, the
+    kernels' counts set to 0 just before and read just after, the first
+    flash input of each shape kept; rank 0's logits of batch row 0 at
+    ``SP_ROWS`` positions over both ranks' halves, gathered over the
+    vocabulary."""
+    from repro_torch.core.mesh import P, assemble
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    out = train.train_rank(device, job)
+    dev = str(device)
+    _sync(dev)
+    mesh, ctx, params = _rank_setup(job.cfg, 2, dev, pcfg=job.pcfg)
+    toks = torch.from_numpy(tokens).to(dev)
+    pos = torch.linspace(0, tokens.shape[1] - 1, SP_ROWS, device=dev).long()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    staged, comm = mesh.staged_bytes, mesh.comm_seconds
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), mesh, _served_flash_inputs() as seen:
+        lg = T.forward(params, toks, job.cfg, ctx=ctx)
+        _sync(dev)
+    out.update(fwd_wall=time.perf_counter() - t0, fwd_counts=_family_counts(),
+               fwd_staged=mesh.staged_bytes - staged, fwd_comm=mesh.comm_seconds - comm,
+               fwd_peak=_peak(dev))
+    with mesh:
+        rows = assemble(lg[0, pos].float().contiguous(), P(None, "model"), mesh)
+    out["fwd_logits"] = rows.cpu() if mesh.rank == 0 else None
+    out["fwd_pos"] = pos.cpu()
+    out["flash_checks"] = _flash_checks(seen)
+    return out
+
+
+def phase_train_tp_sp(cfg, ref_losses, tp: dict, res: list, tokens: np.ndarray,
+                      dev: str = "cuda") -> None:
+    """Full-width, full-depth Llama-3.2-3B on 2 ranks sharing the card, mesh
+    (1, 2), TP 2 with the sequence-parallel residual (each rank's S/2 rows
+    between the layers: all-gathers before the column-parallel products,
+    reduce-scatters after the row-parallel ones), ``phase_train``'s state,
+    data and TrainConfig, 3 steps: losses within MESH_TOL of
+    ``phase_train``'s; staged bytes, the share of the wall inside the
+    collectives and the peak memory a rank beside "train tp"'s.  Then one
+    no-grad forward of a batch on the same ranks: each rank's S/2 query
+    rows through the tensor-core flash kernel (launches a rank = layers),
+    each rank's kernel against its plain version on its own inputs
+    (KERNEL_TOL[bf16]), rank 0's logits against the one-process bf16
+    ``forward`` (ORACLE_REL_RMS).  ``res``: the ranks' ``rank_train_sp``
+    results from "train tp"'s launch."""
+    from repro_torch.models import transformer as T
+    pcfg = _train_setup(cfg)[0]
+    hist = res[0]["history"]
+    losses = [h["loss"] for h in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    print(f"[train tp sp] {cfg.name}, {cfg.n_layers} layers, mesh (1, 2), TP 2, "
+          f"sequence_parallel, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat={pcfg.remat}: losses "
+          + ", ".join(f"{a:.4f} (one process {b:.4f}, relative {e:.1e})"
+                      for a, b, e in zip(losses, ref_losses, rel))
+          + f", bound {MESH_TOL}", flush=True)
+    _print_ranks("train tp sp", [max(r["history"][i]["time_s"] for r in res)
+                                 for i in range(len(hist))], [r["peak_bytes"] for r in res],
+                 [[h["staged_bytes"] for h in r["history"]] for r in res],
+                 [[h["comm_s"] for h in r["history"]] for r in res])
+    sp = _rank_figures(res)
+    for key, label, scale, unit in (
+            ("staged", f"staged a step (steps 2-{len(hist)})", 1e9, " GB"),
+            ("comm_share", f"share of the step wall inside the collectives (steps "
+                           f"2-{len(hist)})", 1.0, ""),
+            ("peak", "peak memory (max_memory_allocated, the steps)", 1e9, " GB")):
+        print(f"[train tp sp] {label} by rank: "
+              f"{', '.join(f'{v / scale:.3f}' for v in sp[key])}{unit}; train tp (no sequence "
+              f"parallelism), this run: {', '.join(f'{v / scale:.3f}' for v in tp[key])}{unit}; "
+              f"ratio {np.mean(sp[key]) / np.mean(tp[key]):.3f}", flush=True)
+    if len(losses) != TP_STEPS or not all(np.isfinite(losses)) or not max(rel) <= MESH_TOL:
+        fail(f"train tp sp: losses {losses} against one process's {ref_losses[:TP_STEPS]}")
+    for rank, r in enumerate(res):
+        c = r["fwd_counts"]
+        print(f"[train tp sp] rank {rank}: no-grad forward of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens in {r['fwd_wall'] * 1e3:.1f} ms, launches {c}, staged "
+              f"{r['fwd_staged'] / 1e9:.3f} GB, {r['fwd_comm'] * 1e3:.0f} ms inside the "
+              f"collectives, peak {r['fwd_peak'] / 1e9:.2f} GB", flush=True)
+        if c["flash_wgmma"] != cfg.n_layers or c["flash_simt"] or c["paged"]:
+            fail(f"train tp sp: rank {rank}'s forward launched {c}; want flash_wgmma = "
+                 f"{cfg.n_layers} and no other kernel")
+    _gate_flash_checks("train tp sp", res)
+    params = _init_on(cfg, dev)
+    pos = torch.from_numpy(res[0]["fwd_pos"])
+    with torch.no_grad():
+        ref = T.forward(params, torch.from_numpy(tokens[:1]).to(dev), cfg)[0, pos.to(dev)]
+    del params
+    _sync(dev)
+    got = torch.from_numpy(res[0]["fwd_logits"])
+    err = _rel_rms(got, ref.float().cpu())
+    print(f"[train tp sp] rank 0's no-grad logits (batch row 0, {len(pos)} positions over "
+          f"both ranks' rows) vs the one-process bf16 forward: max per-row relative RMS "
+          f"{err:.3e} (bound {ORACLE_REL_RMS:g})", flush=True)
+    if not torch.isfinite(got).all() or not err <= ORACLE_REL_RMS:
+        fail(f"train tp sp: rank 0's logits differ from one process's forward: {err:.3e}")
+
+
+def rank_serve_whole(cfg, params, ctx, dev) -> dict:
+    """"serve ranks whole cache" on one of ``rank_serve``'s 2 ranks, its
+    Llama-3.2-3B blocks: ``Scheduler(ctx=)`` end-aligned with max_len 575
+    and bucket 15 (2 divides neither: the cache rows are whole on every
+    rank, and a 512-token prompt's 525-token bucket attends the whole
+    gathered K/V), then request 0 teacher-forced in bf16 as served into a
+    575-slot cache."""
+    from repro_torch.launch.scheduler import make_requests
+    reqs = make_requests(RANK_REQ, PROMPT, WHOLE_GEN, cfg.vocab, stagger=STAGGER)
+    out = _rank_serve("whole", cfg, params, ctx, reqs, slots=RANK_SLOTS,
+                      max_len=PROMPT + WHOLE_GEN, bucket=WHOLE_BUCKET)
+    seq = np.concatenate([np.asarray(reqs[0].prompt),
+                          np.asarray(out["tokens"][0][:RANK_ORACLE_GEN - 1], np.int32)])
+    out["oracle_seq"] = seq
+    out["served_bf16"] = _rank_path(cfg, params, ctx, seq, PROMPT, RANK_ORACLE_GEN, dev,
+                                    f32=False, max_len=PROMPT + WHOLE_GEN)
+    return out
+
+
+def phase_serve_ranks_whole(served, cfg, dev: str = "cuda") -> None:
+    """Full-width Llama-3.2-3B on 2 ranks sharing the card (mesh (1, 2)),
+    served end-aligned with a cache length and a bucket that 2 does not
+    divide (4 requests of 512 + 63 tokens): each rank holds every slot,
+    writes every token and scores every slot with no combine over
+    ``model``.  Flash launches a rank = admissions x 28 (nothing else);
+    each rank's flash kernel against its plain version on its served
+    inputs; request 0's bf16 logits, teacher-forced, against the
+    one-process bf16 path (ORACLE_REL_RMS).  The ranks served it in
+    ``rank_serve``'s launch (``served``), on the weights already there."""
+    from repro_torch.launch.scheduler import make_requests
+    runs = [r["whole"] for r in served["res"]]
+    reqs = make_requests(RANK_REQ, PROMPT, WHOLE_GEN, cfg.vocab, stagger=STAGGER)
+    want = sum(1 for r in reqs if len(r.prompt) > 0) * cfg.n_layers
+    _check_same_tokens("serve ranks whole cache", runs)
+    for rank, r in enumerate(runs):
+        if sorted(r["tokens"]) != list(range(RANK_REQ)) or any(
+                len(t) != WHOLE_GEN for t in r["tokens"].values()):
+            fail(f"serve ranks whole cache: rank {rank} served {sorted(r['tokens'])}")
+        others = {k: v for k, v in r["counts"].items() if k != "flash_wgmma"}
+        if r["counts"]["flash_wgmma"] != want or any(others.values()):
+            fail(f"serve ranks whole cache: rank {rank} launches {r['counts']}; want "
+                 f"flash_wgmma = {want} and no other kernel")
+    _print_rank_serve("serve ranks whole cache", cfg, runs,
+                      f"; max_len {PROMPT + WHOLE_GEN}, bucket {WHOLE_BUCKET}")
+    _gate_flash_checks("serve ranks whole cache", runs)
+    seq = runs[0]["oracle_seq"]
+    params = _init_on(cfg, dev)
+    one = _one_process_path(cfg, params, seq, PROMPT, RANK_ORACLE_GEN, dev, f32=False)
+    del params
+    _sync(dev)
+    rels = [_rel_rms(torch.from_numpy(r["served_bf16"]), one) for r in runs]
+    print(f"[serve ranks whole cache] served_bf16: request 0 over {len(seq)} tokens, the "
+          f"ranks' fused prefill and end-aligned decode into the whole 575-slot cache in bf16 "
+          f"vs the one-process bf16 path: max per-row relative RMS by rank "
+          f"{', '.join(f'{x:.3e}' for x in rels)} (bound {ORACLE_REL_RMS:g})", flush=True)
+    if max(rels) > ORACLE_REL_RMS or not all(np.isfinite(r["served_bf16"]).all() for r in runs):
+        fail(f"serve ranks whole cache: the ranks' bf16 logits differ from one process's: "
+             f"{max(rels):.3e}")
+
+
+# ---------------------------------------------------------------------------
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3234,17 +3461,19 @@ def main() -> None:
     _timed("train reduced", phase_train_reduced, cfg)
     _timed("train launcher", phase_train_launcher)
     counts, link = _timed("ranks", phase_distributed)
-    _timed("train tp", phase_train_tp, cfg, train_losses, link)
+    tp_figures, sp_runs, sp_tokens = _timed("train tp", phase_train_tp, cfg, train_losses, link)
+    _timed("train tp sp", phase_train_tp_sp, cfg, train_losses, tp_figures, sp_runs, sp_tokens)
     _timed("train layouts", phase_train_layouts, link)
     _timed("serve moe aligned", phase_serve_moe_aligned)
     _timed("serve moe paged", phase_serve_moe_paged)
-    for arch in RECURRENT_ARCHS:
-        _timed(f"serve {RECURRENT_ARCHS[arch]}", phase_serve_recurrent, arch)
+    for arch, (tag, _) in RECURRENT_ARCHS.items():
+        _timed(f"serve {tag}", phase_serve_recurrent, arch)
     _timed("serve encdec", phase_serve_encdec)
     _timed("train families", phase_train_families)
     _timed("moe ranks", phase_moe_ranks)
     cfgs = rank_cfgs()
     served = _timed("serve ranks", phase_serve_ranks, aligned_comps, cfgs)
+    _timed("serve ranks whole cache", phase_serve_ranks_whole, served, cfg)
     _timed("serve ranks families", phase_serve_ranks_families, served, cfgs)
     _timed("train families ranks", phase_train_families_ranks)
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"

@@ -21,7 +21,7 @@ Where the reference selects with a traced predicate (``jnp.where`` on the
 axis index), the port branches on the rank's index, a Python int.  Elements
 are tensors or tuples / lists / dicts of tensors.
 
-Four of the operations are differentiable, each a ``torch.autograd.Function``
+Seven of the operations are differentiable, each a ``torch.autograd.Function``
 whose backward is its transpose -- what ``shard_map``'s transpose and GSPMD's
 partitioner give the reference:
 
@@ -29,7 +29,17 @@ partitioner give the reference:
   reduceD("sum")                   identity
   copy_d (identity, replicated x)  reduceD("sum")   (a column-parallel input)
   allGatherD (tiled, any dim)      reduceScatterD("sum") on that dim
+  reduceScatterD("sum") on a dim   allGatherD on that dim
   allToAllD                        the inverse allToAllD
+  split_dim (this element's chunk) allGatherD on that dim
+  all_gather_whole (allGatherD)    this element's chunk
+
+The last two carry a sequence-sharded activation into and out of a block
+that runs on the whole, replicated sequence (every rank holding the whole
+cotangent, as after ``reduceD("sum")``); the gather / reduce-scatter pair
+carries it into a column-parallel and out of a row-parallel product, whose
+ranks each hold a share of the cotangent (the Megatron sequence-parallel
+pattern).
 
 Each holds its mesh, so a backward pass (and the recompute of a
 checkpointed region) issues its collectives outside any ``with mesh:``
@@ -112,6 +122,46 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter_dim(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter_dim(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
+
+
+def _chunk(mesh: ProcessMesh, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    p, n = mesh.size(axes), x.shape[dim]
+    if n % p:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {p} ways")
+    return x.narrow(dim, mesh.index(axes) * (n // p), n // p)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _chunk(mesh, x, axes, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllGatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather_dim(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, split, concat):
@@ -151,6 +201,35 @@ def all_gather_dim(x: torch.Tensor, axis, dim: int = 0,
     along ``dim``."""
     mesh = mesh or current()
     return _AllGather.apply(x, mesh, axis, dim % x.dim()) if _grouped(mesh, axis) else x
+
+
+def reduce_scatter_dim(x: torch.Tensor, axis, dim: int = 0,
+                       mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """``reduceScatterD("sum")`` along ``dim``: the group's sum, element i
+    keeping chunk i of ``dim``; its transpose all-gathers the cotangent
+    along ``dim`` (the way out of a row-parallel product into a
+    sequence-sharded activation)."""
+    mesh = mesh or current()
+    return _ReduceScatter.apply(x, mesh, axis, dim % x.dim()) if _grouped(mesh, axis) else x
+
+
+def split_dim(x: torch.Tensor, axis, dim: int = 0,
+              mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """This element's chunk of ``dim`` of a tensor replicated over the group
+    (no communication); its transpose all-gathers the cotangent along
+    ``dim``, so the replicated producer gets its whole cotangent on every
+    element."""
+    mesh = mesh or current()
+    return _Split.apply(x, mesh, axis, dim % x.dim()) if _grouped(mesh, axis) else x
+
+
+def all_gather_whole(x: torch.Tensor, axis, dim: int = 0,
+                     mesh: ProcessMesh | None = None) -> torch.Tensor:
+    """``allGatherD`` along ``dim`` into a tensor that every element then
+    uses whole (a block run replicated, each element computing the whole
+    cotangent): its transpose keeps this element's chunk of the cotangent."""
+    mesh = mesh or current()
+    return _AllGatherWhole.apply(x, mesh, axis, dim % x.dim()) if _grouped(mesh, axis) else x
 
 
 def all_to_all_dim(x: torch.Tensor, axis, split: int, concat: int,

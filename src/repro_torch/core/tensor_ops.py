@@ -8,7 +8,10 @@ A Megatron-style TP layer is a FooPar chain over the ``model`` axis:
   row-parallel     y = sum_k x_shard @ W_shard      -- zipWithD (.) then reduceD (+)
 
 the same ``mapD/zipWithD -> reduceD`` pattern as the paper's matrix
-multiplication (section 4.2).  Each function takes the rank's local blocks
+multiplication (section 4.2).  With a sequence-sharded activation
+(``seq_dim``, the Megatron sequence-parallel layout) the column-parallel
+input is an ``allGatherD`` of that dim instead of a replicated copy, and
+the row-parallel sum a ``reduceScatterD`` onto it instead of ``reduceD``.  Each function takes the rank's local blocks
 inside an active ``ProcessMesh`` (how the model calls them); given
 ``mesh=``, it takes global operands instead and runs as an ``spmd``
 program over the mesh with the reference's ``shard_map`` in/out specs.
@@ -28,7 +31,7 @@ import torch
 
 from . import costmodel
 from .costmodel import LinkClass, NVLINK
-from .dseq import DSeq, copy_d, reduce_sum
+from .dseq import DSeq, all_gather_dim, copy_d, reduce_scatter_dim, reduce_sum
 from .mesh import P, ProcessMesh, spmd
 
 
@@ -40,7 +43,9 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.T
     return torch.matmul(a.to(out_dtype), b.to(out_dtype))
 
 
-def _on_mesh(body, mesh: ProcessMesh | None, in_specs, out_specs, x, w):
+def _on_mesh(body, mesh: ProcessMesh | None, in_specs, out_specs, x, w, seq_dim=None):
+    if seq_dim is not None and mesh is not None:
+        raise ValueError("seq_dim takes the rank's blocks: call it inside the mesh, without mesh=")
     if mesh is None:
         return body(x, w)
     return spmd(body, mesh, in_specs, out_specs)(x, w)
@@ -48,35 +53,44 @@ def _on_mesh(body, mesh: ProcessMesh | None, in_specs, out_specs, x, w):
 
 def foopar_matmul_row(x: torch.Tensor, w: torch.Tensor, *, mesh: ProcessMesh | None = None,
                       axis: str = "model",
-                      preferred_element_type: torch.dtype = torch.float32) -> torch.Tensor:
+                      preferred_element_type: torch.dtype = torch.float32,
+                      seq_dim: int | None = None) -> torch.Tensor:
     """Row-parallel: x (..., k) with k sharded over ``axis``; w (k, n)
     sharded on k.  FooPar: zipWithD (.) then reduceD (+) -- one all-reduce of
-    the (..., n) output, replicated over ``axis``."""
+    the (..., n) output, replicated over ``axis``; with ``seq_dim`` (local
+    blocks only) a reduceScatterD (+) that leaves element i the i-th chunk
+    of that dim."""
 
     def body(xl, wl):
         partial_ = DSeq(xl, axis).zipWithD(
             DSeq(wl, axis), lambda a, b: _matmul(a, b, preferred_element_type))
+        if seq_dim is not None:
+            return reduce_scatter_dim(partial_.local, axis, seq_dim)
         return partial_.reduceD("sum")
 
     nx = x.dim()
     return _on_mesh(body, mesh, (P(*([None] * (nx - 1) + [axis])), P(axis, None)),
-                    P(*([None] * nx)), x, w)
+                    P(*([None] * nx)), x, w, seq_dim)
 
 
 def foopar_matmul_col(x: torch.Tensor, w: torch.Tensor, *, mesh: ProcessMesh | None = None,
                       axis: str = "model",
-                      preferred_element_type: torch.dtype = torch.float32) -> torch.Tensor:
+                      preferred_element_type: torch.dtype = torch.float32,
+                      seq_dim: int | None = None) -> torch.Tensor:
     """Column-parallel: x replicated, w (k, n) sharded on n; the output
     (..., n) sharded on n.  FooPar: a pure mapD -- no communication forward;
-    the replicated x's gradient is summed over the group backward."""
+    the replicated x's gradient is summed over the group backward.  With
+    ``seq_dim`` (local blocks only) x is sharded on that dim and enters by
+    allGatherD, whose transpose reduce-scatters its gradient."""
 
     def body(xl, wl):
-        return DSeq((copy_d(xl, axis), wl), axis).mapD(
+        xl = copy_d(xl, axis) if seq_dim is None else all_gather_dim(xl, axis, seq_dim)
+        return DSeq((xl, wl), axis).mapD(
             lambda t: _matmul(t[0], t[1], preferred_element_type)).local
 
     nx = x.dim()
     return _on_mesh(body, mesh, (P(*([None] * nx)), P(None, axis)),
-                    P(*([None] * (nx - 1) + [axis])), x, w)
+                    P(*([None] * (nx - 1) + [axis])), x, w, seq_dim)
 
 
 def choose_tp_strategy(m_tokens: int, k: int, n: int, p: int, bytes_per_elt: int = 2,

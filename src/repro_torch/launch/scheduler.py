@@ -38,11 +38,12 @@ the rank's parameter blocks) every rank runs this same host loop on the
 same requests.  The decode step runs on the batch axes that divide the
 slots and a B=1 admission on none (``launch.specs.restrict_batch``); the
 slot cache is the rank's blocks (``cache_specs``: the end-aligned rows
-split over ``model`` on their length, so ``max_len`` must split, and
-``bucket`` too, so that a prompt's prefill runs the sequence-sharded
-region), an admission's one-row cache is ``max_len`` long so that its
-blocks line up with the slot rows', and the paged arenas are whole on
-every rank.  The steps return
+split over ``model`` on their length where it divides ``max_len``, else
+whole on every rank; a prompt whose bucket ``model`` splits runs the
+sequence-sharded region, any other attends the whole gathered K/V), an
+admission's one-row cache is ``max_len`` long so that its blocks line up
+with the slot rows', and the paged arenas are whole on every rank.  The
+steps return
 the same global logits on every rank and sampling draws from the same
 seeded generator, so every rank takes the same tokens; a rank whose tokens
 differ from the others' raises (``_agree``), rank 0 does not overrule it.
@@ -155,12 +156,6 @@ class Scheduler:
         if ctx is not None:
             from repro_torch.launch.specs import restrict_batch
             self._dctx, self._pctx = restrict_batch(ctx, slots), restrict_batch(ctx, 1)
-            m = ctx.model_size
-            attends = any(k in ("attn", "attn_moe", "mamba2_attn") for k in cfg.block_pattern)
-            if not paged and attends and (max_len % m or max(1, bucket) % m):
-                raise ValueError(f"under a ctx the end-aligned cache rows split over "
-                                 f"{ctx.model_axis!r}: max_len {max_len} and bucket {bucket} "
-                                 f"must be multiples of {m}")
         self.slots, self.max_len = slots, max_len
         self.bucket, self.bos = max(1, bucket), bos
         self.temperature, self.top_p, self.seed = temperature, top_p, seed

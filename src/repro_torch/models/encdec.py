@@ -17,7 +17,9 @@ parameter blocks (``models/layers.py``): the encoder's and the decoder's
 attention in the sequence-sharded region (Whisper's 1500 frames split
 over ``model``), the cache's length split over ``model`` for decoding, the
 decoder's one-token cross-attention against the whole encoder K/V, the
-MLPs tensor-parallel, the logits split over the vocabulary.
+MLPs tensor-parallel, the logits split over the vocabulary.  The residual
+is never sequence-sharded: JAX's enc-dec constraint ignores
+``seq_parallel``, and so does every entry point here.
 """
 from __future__ import annotations
 
@@ -72,9 +74,15 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
     }
 
 
+def init_abstract(cfg: ModelConfig) -> Params:
+    """Shape-only init for the dry run: every leaf on ``meta``."""
+    return init(cfg, None)
+
+
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig, *, remat: str = "none",
            ctx=None) -> torch.Tensor:
     """frames (B, T_enc, d) stub frame embeddings -> encoder output (B, T_enc, d)."""
+    ctx = L.replicated_seq(ctx)
     dt = L._dtype(cfg)
     t = frames.shape[1]
     h = frames.to(dt) + params["enc_pos"][:t].to(dt)
@@ -104,6 +112,7 @@ def _dec_layer(p: Params, h, positions, enc_out, cfg, cache=None, cache_pos=None
 def decode_train(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
                  cfg: ModelConfig, *, remat: str = "none", ctx=None) -> torch.Tensor:
     """Teacher-forced decoder pass.  Returns logits (B, S, V) f32."""
+    ctx = L.replicated_seq(ctx)
     s = tokens.shape[1]
     h = L.embed(params["embed"], tokens, cfg, ctx) + params["dec_pos"][:s].to(L._dtype(cfg))
     positions = torch.arange(s, device=tokens.device)
@@ -144,6 +153,7 @@ def decode_prefill(params: Params, tokens: torch.Tensor, enc_out: torch.Tensor, 
     call for a prompt-length loop of decode steps).  ``length``: optional
     (B,) true prompt lengths of right-padded prompts.  Returns
     (last-position logits (B, V) f32, cache)."""
+    ctx = L.replicated_seq(ctx)
     b, s = tokens.shape
     h = L.embed(params["embed"], tokens, cfg, ctx) + params["dec_pos"][:s].to(L._dtype(cfg))
     positions = torch.arange(s, device=tokens.device)
@@ -163,6 +173,7 @@ def decode_step(params: Params, token: torch.Tensor, cache, pos, enc_out: torch.
     """One decoder step with cached self-attention; cross-attention recomputes
     K/V from ``enc_out`` (B, T_enc, d).  pos: a scalar, or (B,) per-row
     positions.  Returns (logits (B, V) f32, cache)."""
+    ctx = L.replicated_seq(ctx)
     pos = torch.as_tensor(pos, device=token.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     h = L.embed(params["embed"], token[:, None], cfg, ctx) + \

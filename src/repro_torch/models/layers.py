@@ -49,10 +49,24 @@ A replicated activation entering a column-parallel product passes through
 model-replicated tensor's gradient is the same on each rank of the group.
 Under ``dp_over_model`` nothing is model-sharded and attention is local.
 
+With a sequence-sharded residual (``seq_sharded``: JAX's ``seq_parallel``,
+the residual ``P(batch, 'model', None)`` between the layers) each rank
+holds its S/p rows, and the Megatron sequence-parallel redistributions
+take the place of ``copy_d`` and ``reduceD``: attention and the MLP
+all-gather S before their column-parallel products (``allGatherD``, whose
+transpose reduce-scatters the gradient) and reduce-scatter the
+row-parallel partial products onto the rows (``reduceScatterD``, whose
+transpose all-gathers); ``embed`` reduce-scatters its vocabulary-shard sum
+onto the rows, ``logits`` gathers the rows of the final norm so that the
+logits keep every position, and a norm's scale enters through ``copy_d``
+(``residual_norm``).  The numbers are those of the replicated residual.
+
 With a cache under a ctx (the serve engine on a mesh), the layout of
 ``launch/specs.py::cache_specs``: an end-aligned cache ``(B, L, Hkv, hd)``
 is split over ``model`` on its length, rank r holding the slots
-``[r L/p, (r+1) L/p)``:
+``[r L/p, (r+1) L/p)``, or, where ``model`` does not divide L, held whole
+on every rank (each rank writes every token and scores every slot with no
+combine, as one process does; ``launch.specs.kv_slots``):
 
   * a fused prefill from position 0 runs the sequence-sharded region; the
     prompt's K/V (all S tokens, gathered) go into the rank's slots (an SWA
@@ -82,6 +96,7 @@ The output leaves through the row-parallel ``wo``, whose partial products
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -89,7 +104,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, torch_dtype
-from repro_torch.core.dseq import all_gather_dim, all_to_all_dim, copy_d, reduce_sum
+from repro_torch.core.dseq import (all_gather_dim, all_gather_whole, all_to_all_dim, copy_d,
+                                   reduce_scatter_dim, reduce_sum, split_dim)
 from repro_torch.core.tensor_ops import foopar_matmul_col, foopar_matmul_row
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
@@ -490,6 +506,45 @@ def _tp_axis(ctx) -> Optional[str]:
     return None if ctx.dp_over_model else ctx.model_axis
 
 
+def seq_sharded(ctx) -> bool:
+    """True when the residual between the layers is this rank's sequence
+    rows (B/dp, S/tp, d): ``ctx.seq_parallel`` under tensor parallelism
+    (``transformer.forward`` sets it only where S splits)."""
+    return ctx is not None and ctx.seq_parallel and _tp_axis(ctx) is not None
+
+
+def replicated_seq(ctx):
+    """``ctx`` for a call whose activations hold the whole sequence (a
+    serving call, the enc-dec model, a block kind with no sequence-sharded
+    form): ``seq_parallel`` off."""
+    if ctx is None or not ctx.seq_parallel:
+        return ctx
+    return dataclasses.replace(ctx, seq_parallel=False)
+
+
+def residual_norm(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """``apply_norm`` on the residual.  Sequence-sharded, each rank
+    normalises its own rows, so the scale (and bias) enter through
+    ``copy_d``: their gradient is summed over ``model``."""
+    if seq_sharded(ctx):
+        p = replicated_params(p, ctx)
+    return apply_norm(p, x, cfg)
+
+
+def gather_seq(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The rank's sequence rows -> the whole sequence, for a block kind
+    with no sequence-sharded form (run replicated, as without
+    ``seq_parallel``); the identity when the residual is not sharded."""
+    return all_gather_whole(x, ctx.model_axis, 1, ctx.mesh) if seq_sharded(ctx) else x
+
+
+def scatter_seq(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The whole sequence (replicated) -> this rank's rows, a slice whose
+    transpose gathers the cotangent; the identity when the residual is not
+    sharded."""
+    return split_dim(x, ctx.model_axis, 1, ctx.mesh) if seq_sharded(ctx) else x
+
+
 def _weight(w: torch.Tensor, names: Tuple[str, ...], shape: Tuple[int, ...], cfg: ModelConfig,
             ctx, *, model_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None
             ) -> torch.Tensor:
@@ -603,15 +658,30 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
                    xattn_kv: Optional[torch.Tensor] = None):
     """Attention on this rank's batch rows ``x`` (b, S, d), replicated over
     ``model``; returns the rank's (b, S, d) output, also replicated, and
-    the cache.  Heads are never sharded (GQA head counts rarely divide TP):
-    with S > 1 from position 0 the einsum region is sequence-sharded over
-    ``model``; otherwise q is replicated and, with an end-aligned cache,
-    the keys are (the cache's length is split over ``model``)."""
-    b, s, d = x.shape
+    the cache.  Under a sequence-sharded residual (``seq_sharded``) ``x``
+    holds the rank's S/p rows, which are all-gathered before the
+    column-parallel q, k, v, and the output is the rank's rows, the
+    row-parallel ``wo``'s partial products reduce-scattered onto them.
+    Heads are never sharded (GQA head counts rarely divide TP): with S > 1
+    from position 0 the einsum region is sequence-sharded over ``model``;
+    otherwise q is replicated and, with an end-aligned cache, so are the
+    keys of a cache held whole on every rank, and a split cache's are
+    split over ``model`` on its length (``launch.specs.kv_slots``)."""
+    from repro_torch.launch.specs import kv_slots
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = hq // hkv
     dt, mesh, M = _dtype(cfg), ctx.mesh, ctx.model_axis
     p_ = ctx.model_size
+    sp = seq_sharded(ctx)
+    # column-parallel input: the gathered rows, or the replicated x
+    xm = all_gather_dim(x, M, 1, mesh) if sp else copy_d(x, M, mesh)
+    b, s, d = xm.shape
+
+    def out_rows(y):
+        """The row-parallel ``wo``'s partial products summed: onto the
+        rank's rows, or replicated."""
+        return reduce_scatter_dim(y, M, 1, mesh) if sp else reduce_sum(y, M, mesh)
+
     wq = _weight(p["wq"], ("attn", "wq"), (d, hq * hd), cfg, ctx, model_dim=1, dtype=dt)
     wk = _weight(p["wk"], ("attn", "wk"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
     wv = _weight(p["wv"], ("attn", "wv"), (d, hkv * hd), cfg, ctx, model_dim=1, dtype=dt)
@@ -620,7 +690,6 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
         for t in cache:
             if t.shape[0] != b:
                 raise ValueError(f"cache block {tuple(t.shape)} for {b} rows")
-    xm = copy_d(x, M, mesh)                   # column-parallel input
     src = xm if xattn_kv is None else copy_d(xattn_kv, M, mesh)
     cross = xattn_kv is not None
     r = mesh.index(M)
@@ -639,10 +708,10 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
         keys, vals = k, v
         if cache is not None:
             ck, cv = cache
-            nl = ck.shape[1]
-            _write_prefill(ck, cv, k, v, 0, r * nl, nl * p_)
+            lo, lk = kv_slots(ck, ctx)
+            _write_prefill(ck, cv, k, v, 0, lo, lk)
             new_cache = (ck, cv)
-            if s <= nl * p_:                  # the attention reads the cache's dtype
+            if s <= lk:                       # the attention reads the cache's dtype
                 keys, vals = k.to(ck.dtype), v.to(cv.dtype)
         if cross:
             out = _sdpa(q, keys, vals, causal=False, window=cfg.window, q_offset=row0)
@@ -655,7 +724,7 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
             out = _flash(q, keys[:, :end], vals[:, :end], causal=causal, window=cfg.window)
         # sequence-sharded -> feature-sharded for the row-parallel wo
         out = all_to_all_dim(out.reshape(b, s_loc, hq * hd), M, 2, 1, mesh)
-        return reduce_sum(dense(out, wo, cfg), M, mesh), new_cache
+        return out_rows(dense(out, wo, cfg)), new_cache
 
     # q replicated: the rank's q, k, v columns gathered in one allGatherD
     nq, nk = wq.shape[1], wk.shape[1]
@@ -678,8 +747,8 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
         out, new_cache = _paged(q, k, v, cache, cache_pos, block_tables, cfg)
     elif cache is not None:
         ck, cv = cache                        # this rank's slots of each row
-        nl = ck.shape[1]
-        lk, lo = nl * p_, r * nl
+        lo, lk = kv_slots(ck, ctx)
+        split = lk > ck.shape[1]              # else whole: every rank holds every slot
         per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
         if s == 1 and not per_row:
             # a scalar position: JAX's dynamic_update_slice clamp, then per row
@@ -687,7 +756,8 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
                                         device=x.device).expand(b)
             per_row = True
         if per_row:
-            # the token is written only on the rank that owns its slot
+            # the token is written on the rank that owns its slot (on every
+            # rank, for a whole cache)
             _write_rows(ck, cache_pos - lo, k[:, 0])
             _write_rows(cv, cache_pos - lo, v[:, 0])
         else:
@@ -699,23 +769,30 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
             out = _flash(q, k, v, causal=True, window=cfg.window)
         elif cfg.window is not None and lk == cfg.window and s == 1:
             valid = torch.clamp(positions[..., -1] + 1, max=lk)
-            out = _sdpa_split(q, ck, cv, ctx, causal=False, window=None, q_offset=0,
-                              k_offset=lo, kv_len_valid=valid)
+            if split:
+                out = _sdpa_split(q, ck, cv, ctx, causal=False, window=None, q_offset=0,
+                                  k_offset=lo, kv_len_valid=valid)
+            else:
+                out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
+                            kv_len_valid=valid)
         elif isinstance(cache_pos, int) and cache_pos == 0:
             # a fused prefill from 0 whose S does not split over ``model``:
             # every rank holds the whole k/v, read in the cache's dtype as
             # the one-process path reads its rows
             out = _flash(q, k.to(ck.dtype), v.to(cv.dtype), causal=True, window=cfg.window)
-        else:
+        elif split:
             out = _sdpa_split(q, ck, cv, ctx, causal=True, window=cfg.window,
                               q_offset=cache_pos, k_offset=lo)
+        else:
+            # a whole cache: every slot scored here, no combine over ``model``
+            out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)
     elif q.requires_grad:
         out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
     else:
         out = _flash(q, k, v, causal=causal, window=cfg.window)
     # replicated -> the rank's feature columns for the row-parallel wo
     out = out.reshape(b, s, hq * hd).narrow(2, r * (hq * hd // p_), hq * hd // p_)
-    return reduce_sum(dense(out, wo, cfg), M, mesh), new_cache
+    return out_rows(dense(out, wo, cfg)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -757,8 +834,11 @@ def _mlp_foopar(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx) -> torch.Tens
     the up/gate projections (one mapD over both weights, so the input's
     gradient is summed over ``model`` once) and zipWithD . reduceD("sum")
     for the down projection (``core/tensor_ops.py``) -- the same math as
-    the single-device ``mlp``."""
+    the single-device ``mlp``.  Under a sequence-sharded residual the input
+    is the rank's rows, all-gathered into the column product, and the down
+    projection's sum is reduce-scattered back onto them."""
     dt, ax = _dtype(cfg), ctx.model_axis
+    seq = 1 if seq_sharded(ctx) else None
     d = cfg.d_model
     ff = p["w_down"].shape[0] * ctx.model_size
     w = {n: _weight(t, ("mlp", n), (ff, d) if n == "w_down" else (d, ff), cfg, ctx,
@@ -766,13 +846,13 @@ def _mlp_foopar(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx) -> torch.Tens
     xx = x.to(dt)
     if "w_gate" in w:
         gu = foopar_matmul_col(xx, torch.cat([w["w_gate"], w["w_up"]], dim=1), axis=ax,
-                               preferred_element_type=dt)
+                               preferred_element_type=dt, seq_dim=seq)
         g, u = gu.split(w["w_up"].shape[1], dim=-1)
         h = F.silu(g.float()).to(dt) * u
     else:
-        h = F.gelu(foopar_matmul_col(xx, w["w_up"], axis=ax, preferred_element_type=dt)
-                   .float(), approximate="tanh").to(dt)
-    return foopar_matmul_row(h, w["w_down"], axis=ax, preferred_element_type=dt)
+        h = F.gelu(foopar_matmul_col(xx, w["w_up"], axis=ax, preferred_element_type=dt,
+                                     seq_dim=seq).float(), approximate="tanh").to(dt)
+    return foopar_matmul_row(h, w["w_down"], axis=ax, preferred_element_type=dt, seq_dim=seq)
 
 
 # ---------------------------------------------------------------------------
@@ -806,7 +886,9 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.
     the fsdp columns are gathered (in the parameters' dtype, so the
     gradient accumulates as on one device), each rank looks up the tokens
     inside its vocabulary rows (the rest masked to 0) and the rows are
-    summed over ``model`` -- one nonzero a row, so the sum is exact."""
+    summed over ``model`` -- one nonzero a row, so the sum is exact.  Under
+    a sequence-sharded residual the sum is reduce-scattered onto the rank's
+    sequence rows (a whole-vocabulary lookup keeps them)."""
     w = p["embedding"]
     vpart = None
     if ctx is not None:
@@ -815,17 +897,21 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.
         vpart = _vocab_part(("embed", "embedding"), shape, 0, cfg, ctx)
     if vpart is None:
         flat = w.index_select(0, tokens.reshape(-1))
-        return flat.reshape(*tokens.shape, -1).to(_dtype(cfg))
+        return scatter_seq(flat.reshape(*tokens.shape, -1).to(_dtype(cfg)), ctx)
     t = tokens.reshape(-1).long() - ctx.mesh.index(vpart) * w.shape[0]
     inside = (t >= 0) & (t < w.shape[0])
     rows = w.index_select(0, torch.where(inside, t, 0))
-    rows = torch.where(inside[:, None], rows, 0.0).to(_dtype(cfg))
-    return reduce_sum(rows.reshape(*tokens.shape, -1), vpart, ctx.mesh)
+    rows = torch.where(inside[:, None], rows, 0.0).to(_dtype(cfg)).reshape(*tokens.shape, -1)
+    if seq_sharded(ctx):
+        return reduce_scatter_dim(rows, vpart, 1, ctx.mesh)
+    return reduce_sum(rows, vpart, ctx.mesh)
 
 
 def logits(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tensor:
     """f32 logits.  Under a ctx with the vocabulary split over ``model``
-    they stay split: the rank's (.., V / model) columns."""
+    they stay split: the rank's (.., V / model) columns.  A sequence-sharded
+    ``x`` (the rank's rows of the final norm's output) is all-gathered
+    first, so the logits hold every position, (B/dp, S, V/tp)."""
     dt = _dtype(cfg)
     if ctx is not None:
         vpart = vocab_axis(cfg, ctx)
@@ -836,7 +922,10 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx=None) -> torch.Tens
             w = _weight(p["unembed"], ("embed", "unembed"), (cfg.d_model, cfg.vocab),
                         cfg, ctx, dtype=dt)
         if vpart is not None:
-            x = copy_d(x, vpart, ctx.mesh)
+            x = all_gather_dim(x, vpart, 1, ctx.mesh) if seq_sharded(ctx) else \
+                copy_d(x, vpart, ctx.mesh)
+        else:
+            x = gather_seq(x, ctx)
     else:
         w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
     out = _matmul_f32(x.to(dt), w.to(dt))

@@ -88,47 +88,64 @@ def _block_init(kind: str, gen, cfg: ModelConfig, dtype) -> Params:
 
 def _block_apply(kind: str, p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
                  cache, cache_pos, block_tables, shared_attn: Optional[Params], ctx=None):
-    """Returns (h, new cache entry, aux loss contribution)."""
+    """Returns (h, new cache entry, aux loss contribution).  Under a
+    sequence-sharded residual (``layers.seq_sharded``) ``h`` is the rank's
+    sequence rows: the norms run on them, attention and the dense MLP take
+    them; a block kind with no sequence-sharded form (MoE, Mamba2, mLSTM,
+    sLSTM) gathers the whole sequence on entry, runs as without
+    ``seq_parallel`` (``whole``) and keeps the rank's rows on exit."""
     aux = None
+    whole = L.replicated_seq(ctx)
+
+    def norm(q, x):
+        return L.residual_norm(q, x, cfg, ctx)
+
+    def replicated(fn, x):
+        """``fn`` (returning a pair) of the whole sequence, its first output
+        back to the rank's rows."""
+        out, rest = fn(L.gather_seq(x, ctx))
+        return L.scatter_seq(out, ctx), rest
+
     if kind in ATTN_KINDS:
-        x1 = L.apply_norm(p["ln1"], h, cfg)
+        x1 = norm(p["ln1"], h)
         attn_out, new = L.attention(p["attn"], x1, positions, cfg, cache=cache,
                                     cache_pos=cache_pos, block_tables=block_tables, ctx=ctx)
         if cfg.parallel_block:             # command-r style: attn || ffn on one input
             x2 = x1
         else:
             h = h + attn_out
-            x2 = L.apply_norm(p["ln2"], h, cfg)
+            x2 = norm(p["ln2"], h)
         if kind == "attn":
             ffn_out = L.mlp(p["mlp"], x2, cfg, ctx)
         else:
-            ffn_out, probs = M.moe_ffn(p["moe"], x2, cfg, ctx)
-            aux = M.load_balance_loss(probs, ctx)
+            ffn_out, probs = replicated(lambda x: M.moe_ffn(p["moe"], x, cfg, whole), x2)
+            aux = M.load_balance_loss(probs, whole)
         if cfg.parallel_block:
             return h + attn_out + ffn_out, new, aux
         return h + ffn_out, new, aux
 
     if kind in ("mamba2", "mamba2_attn"):
-        out, m_new = S.mamba2_block(p["mamba"], L.apply_norm(p["ln1"], h, cfg), cfg,
-                                    cache=cache["mamba"] if cache is not None else None, ctx=ctx)
+        out, m_new = replicated(lambda x: S.mamba2_block(
+            p["mamba"], x, cfg, cache=cache["mamba"] if cache is not None else None, ctx=whole),
+            norm(p["ln1"], h))
         h = h + out
         new = {"mamba": m_new} if cache is not None else None
         if kind == "mamba2_attn":
-            a_out, sa_new = L.attention(shared_attn["attn"],
-                                        L.apply_norm(shared_attn["ln1"], h, cfg), positions,
-                                        cfg, cache=cache["shared_attn"] if cache is not None
-                                        else None, cache_pos=cache_pos, ctx=ctx)
+            a_out, sa_new = L.attention(shared_attn["attn"], norm(shared_attn["ln1"], h),
+                                        positions, cfg, cache=cache["shared_attn"]
+                                        if cache is not None else None, cache_pos=cache_pos,
+                                        ctx=ctx)
             h = h + a_out
-            h = h + L.mlp(shared_attn["mlp"], L.apply_norm(shared_attn["ln2"], h, cfg), cfg,
-                          ctx)
+            h = h + L.mlp(shared_attn["mlp"], norm(shared_attn["ln2"], h), cfg, ctx)
             if cache is not None:
                 new["shared_attn"] = sa_new
         return h, new, aux
 
     if kind in ("mlstm", "slstm"):
         block = X.mlstm_block if kind == "mlstm" else X.slstm_block
-        out, s_new = block(p[kind], L.apply_norm(p["ln1"], h, cfg), cfg,
-                           cache=cache[kind] if cache is not None else None, ctx=ctx)
+        out, s_new = replicated(lambda x: block(
+            p[kind], x, cfg, cache=cache[kind] if cache is not None else None, ctx=whole),
+            norm(p["ln1"], h))
         return h + out, ({kind: s_new} if cache is not None else None), aux
     raise ValueError(f"unknown block kind {kind!r}")
 
@@ -172,6 +189,12 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
             "ln2": L.norm_init(cfg.d_model, cfg, dev),
             "mlp": L.mlp_init(generator, cfg, dtype=dtype)})
     return params
+
+
+def init_abstract(cfg: ModelConfig) -> Params:
+    """Shape-only init for the dry run: every leaf on ``meta``, nothing
+    drawn or allocated (JAX's ``eval_shape`` of its init)."""
+    return init(cfg, None)
 
 
 def decay_mask(params: Params) -> dict:
@@ -222,13 +245,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     ``ctx``: this rank's batch rows and parameter blocks in, its logits
     block out (B/dp, S, V/tp); a recompute issues its layer's collectives
-    again, in the same order on every rank."""
+    again, in the same order on every rank.  With ``ctx.seq_parallel`` the
+    residual between the layers is the rank's sequence rows (B/dp, S/tp, d)
+    (``_constrain``); where ``model`` does not split S it stays replicated,
+    the same numbers either way."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
-    if ctx is not None:
-        if ctx.seq_parallel:
-            raise NotImplementedError("a sequence-parallel residual (ctx.seq_parallel) is "
-                                      "not ported (ROADMAP queue 1, item 8)")
+    if ctx is not None and ctx.seq_parallel:
+        if ctx.dp_over_model:
+            # the residual's spec would name 'model' twice, P(('data', 'model'),
+            # 'model', None), which JAX refuses (DuplicateSpecError)
+            raise ValueError("sequence_parallel with dp_over_model: the residual's spec would "
+                             "name 'model' for both the batch and the sequence")
+        if tokens.shape[1] % ctx.model_size:
+            ctx = L.replicated_seq(ctx)
     h = L.embed(params["embed"], tokens, cfg, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     shared_attn = params.get("shared_attn")
@@ -245,17 +275,18 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
         h, a = remat_call(layer, remat, h, p)
         aux = aux + a
-    h = L.apply_norm(params["final_norm"], h, cfg)
+    h = L.residual_norm(params["final_norm"], h, cfg, ctx)
     logits = L.logits(params["embed"], h, cfg, ctx)
     return (logits, aux) if return_aux else logits
 
 
 def _constrain(h: torch.Tensor, ctx) -> torch.Tensor:
-    """The residual's layout between layers: batch over the batch axes,
-    replicated over ``model`` -- what the layers give by construction, so
-    nothing moves.  The sequence-parallel residual (JAX's
-    ``seq_parallel``, which only the dry run's hill-climb sets) is not
-    ported: ``forward`` refuses it before any collective."""
+    """The residual's layout between layers, JAX's ``P(batch, s_part,
+    None)``: batch over the batch axes, and the sequence over ``model``
+    with ``seq_parallel`` (the rank's rows) or replicated over it without.
+    The layers give it by construction (``layers.seq_sharded``: the
+    Megatron sequence-parallel gathers and reduce-scatters), so nothing
+    moves here."""
     return h
 
 
@@ -301,13 +332,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
 
 def local_cache(cfg: ModelConfig, like: Cache, ctx, device) -> Cache:
     """Zeros (the sLSTM stabiliser's ``m`` at -1e30) in this rank's block
-    shapes (``launch.specs.block_shapes``) of the global cache ``like``
-    (``meta`` tensors will do)."""
-    from repro_torch.launch.specs import block_shapes
-    out = [torch.full(shape, X.M_INIT if path[-1] == "m" else 0.0, dtype=leaf.dtype,
-                      device=device)
-           for (path, leaf), shape in zip(leaves_with_path(like),
-                                          block_shapes(cfg, ctx, like))]
+    shapes (``launch.specs.block_layouts``) of the global cache ``like``
+    (``meta`` tensors will do), each tagged with its spec."""
+    from repro_torch.launch.specs import block_layouts, keep_spec
+    out = [keep_spec(torch.full(shape, X.M_INIT if path[-1] == "m" else 0.0, dtype=leaf.dtype,
+                                device=device), spec)
+           for (path, leaf), (spec, shape) in zip(leaves_with_path(like),
+                                                  block_layouts(cfg, ctx, like))]
     return tree_unflatten(like, out)
 
 
@@ -342,12 +373,14 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
     logits (B, V) f32, cache).  ``ctx``: the rank's rows and cache blocks
     in, its logits block (B/dp, V/tp) out."""
     b, s = tokens.shape
+    ctx = L.replicated_seq(ctx)
     if length is not None:
         if not supports_fused_prefill(cfg):
             raise NotImplementedError(
                 "padded fused prefill needs a causally-maskable pattern; "
                 f"{cfg.block_pattern} carries recurrent state")
-        ring = cache[0][0].shape[1] * (ctx.model_size if ctx is not None else 1)
+        from repro_torch.launch.specs import kv_slots
+        ring = cache[0][0].shape[1] if ctx is None else kv_slots(cache[0][0], ctx)[1]
         if s > ring:
             # the trailing-window ring write would keep pad K/V and drop
             # real tokens; unpadded (length=None) overflow is fine
@@ -399,6 +432,7 @@ def prefill_paged(params: Params, tokens: torch.Tensor, cache: Cache,
     of a right-padded final chunk.  Returns (logits at the chunk's last real
     token (1, V) f32, cache).  ``ctx``: as ``prefill``'s."""
     b, s = tokens.shape
+    ctx = L.replicated_seq(ctx)
     h = L.embed(params["embed"], tokens, cfg, ctx)
     h = _layers(params, h, pos0 + torch.arange(s, device=tokens.device), cfg, cache, pos0,
                 block_tables, ctx)
@@ -419,6 +453,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     ``prefill``'s (the rank's rows of ``token``, ``pos`` and
     ``block_tables``)."""
     pos = torch.as_tensor(pos, device=token.device)
+    ctx = L.replicated_seq(ctx)
     h = L.embed(params["embed"], token[:, None], cfg, ctx)     # (B, 1, d)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     cache_pos = pos if cfg.window is None else pos % cfg.window

@@ -257,9 +257,9 @@ def shard_params(params: Tree, cfg: ModelConfig, ctx: MeshCtx) -> Tree:
 def shard_cache(cache: Tree, cfg: ModelConfig, ctx: MeshCtx) -> Tree:
     """This rank's block of every leaf of a whole end-aligned decode cache
     under ``launch.specs.cache_specs`` (copies: the layers write caches in
-    place)."""
-    from repro_torch.launch.specs import cache_specs
-    return tree_map(lambda x, s: local_block(x, s, ctx.mesh).clone(), cache,
+    place), each tagged with its spec (``launch.specs.keep_spec``)."""
+    from repro_torch.launch.specs import cache_specs, keep_spec
+    return tree_map(lambda x, s: keep_spec(local_block(x, s, ctx.mesh).clone(), s), cache,
                     cache_specs(cfg, ctx, cache))
 
 

@@ -60,11 +60,12 @@ def test_core_loads_no_jax():
 
 def test_mesh_trainer_loads_no_jax():
     """The SPMD layer (tensor-parallel ops, sharding rules, the planner,
-    the mesh constructors, MeshCtx, the cells' cache specs) and the mesh
-    trainer load neither JAX nor the reference package."""
+    the mesh constructors, MeshCtx, the cells and their cache specs, the
+    roofline tables) and the mesh trainer load neither JAX nor the
+    reference package."""
     code = ("import sys, repro_torch.core.tensor_ops, repro_torch.parallel.sharding, "
             "repro_torch.parallel.planner, repro_torch.launch.mesh, repro_torch.models.moe, "
-            "repro_torch.launch.specs, repro_torch.launch.train; "
+            "repro_torch.launch.specs, repro_torch.launch.roofline, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), timeout=120)

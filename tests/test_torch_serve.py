@@ -151,10 +151,13 @@ def test_unported_engine_raises_naming_the_roadmap(tiny):
     """The end-aligned engine is ported with its recurrent per-token prefill
     fallback (``test_torch_families.py``), and so are the recurrent blocks
     and the serve engine under a mesh ctx (``test_torch_serve_mesh.py``,
-    ``test_torch_engines_mesh.py``).  What is left raises before any
-    collective: the sequence-parallel residual (ROADMAP queue 1, item 8),
-    and, under a ctx, an end-aligned cache whose length the model axis does
-    not split (the layers read their slots' offset from the split)."""
+    ``test_torch_engines_mesh.py``), the sequence-parallel residual
+    (``test_torch_train_mesh.py``) and an end-aligned cache whose length
+    the model axis does not split: it is held whole on every rank, as JAX
+    holds it, and the scheduler takes any ``max_len`` and ``bucket``.  What
+    is left raises before any collective: ``sequence_parallel`` with
+    ``dp_over_model``, whose residual spec would name ``model`` twice (JAX
+    refuses it too)."""
     from repro_torch.config import ParallelConfig as PortParallelConfig
     from repro_torch.config import SSMConfig
     from repro_torch.core.mesh import AbstractMesh
@@ -164,13 +167,16 @@ def test_unported_engine_raises_naming_the_roadmap(tiny):
     assert not Scheduler(recurrent, params, slots=1, max_len=8).fused
     mesh = AbstractMesh((1, 2), ("data", "model"))
     ctx = make_ctx(mesh, PortParallelConfig(fsdp_params=False))
-    sp = make_ctx(mesh, PortParallelConfig(fsdp_params=False, sequence_parallel=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=sp)
-    with pytest.raises(ValueError, match="does not split 2 ways"):
-        T.init_cache(cfg, 1, 9, device="cpu", ctx=ctx)
-    with pytest.raises(ValueError, match="must be multiples of 2"):
-        Scheduler(cfg, params, slots=2, max_len=9, ctx=ctx)
+    both = make_ctx(mesh, PortParallelConfig(fsdp_params=False, sequence_parallel=True,
+                                             dp_over_model=True))
+    with pytest.raises(ValueError, match="sequence_parallel with dp_over_model"):
+        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=both)
+    k, v = T.init_cache(cfg, 1, 9, device="cpu", ctx=ctx)[0]
+    assert k.shape == v.shape == (1, 9, cfg.n_kv_heads, cfg.hd)
+    assert k.cache_spec[1] is None                        # the length dim: whole
+    assert T.init_cache(cfg, 1, 8, device="cpu", ctx=ctx)[0][0].shape[1] == 4
+    sched = Scheduler(cfg, params, slots=2, max_len=9, bucket=3, ctx=ctx)
+    assert sched.cache[0][0].shape[1] == 9
     # the paged arenas are whole on every rank; the recurrent state splits
     assert T.init_cache(recurrent, 2, 9, device="cpu", ctx=ctx)[0]["mamba"]["ssm"].shape[1] == \
         T.init_cache(recurrent, 2, 9, device="cpu")[0]["mamba"]["ssm"].shape[1] // 2

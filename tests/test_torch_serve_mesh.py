@@ -20,6 +20,12 @@ take the global rows and return the global logits on every rank.
     the arenas, whole on every rank;
   * ``Scheduler(ctx=...)``'s greedy completions against JAX's
     ``Scheduler``, end-aligned and paged, on the meshes (1, 2) and (2, 2);
+  * a cache length the 2 model ranks do not split (15, JAX's ``_div``
+    leaves it whole): each rank holds every slot, writes every token and
+    scores every slot with no combine -- the padded fused prefill and
+    decode at per-row positions (f32 and bf16), the SWA ring (a prompt
+    shorter than the ring and one longer), and ``Scheduler(max_len=15,
+    bucket=3)``, whose buckets the ranks split or do not;
   * the MoE layer's EP, TP and a2a layouts at a decode step's (B, 1) tokens
     and at 256-token chunks, with the config's own capacity factor, against
     JAX's single-device ``moe_ffn``;
@@ -69,9 +75,14 @@ PCFG = ParallelConfig(fsdp_params=False)
 B, PROMPT, STEPS, MAX_LEN = 4, 8, 3, 16
 LENS = np.array([8, 5, 8, 3], np.int32)
 WINDOW = 16
+WHOLE = 15                                  # a length the 2 model ranks do not split
 BLOCK, CHUNK = 4, 8
 SCHED = {"aligned": dict(slots=4, max_len=32, bucket=8),
-         "paged": dict(slots=4, max_len=32, paged=True, block=4, chunk=8)}
+         "paged": dict(slots=4, max_len=32, paged=True, block=4, chunk=8),
+         "aligned_whole": dict(slots=4, max_len=WHOLE, bucket=3)}
+# (prompt length, gen, arrival) of the scheduler's requests
+REQS = [(11, 6, 0), (5, 4, 0), (0, 3, 1), (9, 5, 2), (14, 3, 2), (3, 6, 4)]
+WHOLE_REQS = [(9, 6, 0), (5, 4, 0), (0, 3, 1), (7, 5, 2), (11, 3, 2), (3, 6, 4)]
 MOE_SHAPES = {"decode": (4, 1), "chunk": (2, 256)}
 MOE_LAYOUTS = {"ep": dict(fsdp_axes=("data",)), "tp": dict(fsdp_axes=("data",)),
                "a2a": dict(fsdp_axes=(), moe_a2a_ep=True)}
@@ -94,9 +105,9 @@ def _np_cache(jcache):
     return [(k[i], v[i]) for i in range(k.shape[0])]
 
 
-def _requests(cls):
+def _requests(cls, engine):
     r = np.random.RandomState(5)
-    spec = [(11, 6, 0), (5, 4, 0), (0, 3, 1), (9, 5, 2), (14, 3, 2), (3, 6, 4)]
+    spec = WHOLE_REQS if engine == "aligned_whole" else REQS
     return [cls(rid=i, prompt=r.randint(0, 64, (lp,)).astype(np.int32), gen=g, arrival=a)
             for i, (lp, g, a) in enumerate(spec)]
 
@@ -112,11 +123,11 @@ def _moe_cfgs(n_experts):
 # ---------------------------------------------------------------------------
 # the JAX side
 # ---------------------------------------------------------------------------
-def _jax_aligned(jcfg, jparams, dtype):
+def _jax_aligned(jcfg, jparams, dtype, max_len=MAX_LEN):
     toks = _tokens((B, PROMPT), 0)
     for i, n in enumerate(LENS):
         toks[i, n:] = 0
-    jl, jc = JT.prefill(jparams, jnp.asarray(toks), JT.init_cache(jcfg, B, MAX_LEN, dtype), jcfg,
+    jl, jc = JT.prefill(jparams, jnp.asarray(toks), JT.init_cache(jcfg, B, max_len, dtype), jcfg,
                         length=jnp.asarray(LENS))
     cache0 = _np_cache(jc)
     out, pos = [np.asarray(jl)], jnp.asarray(LENS)
@@ -125,12 +136,13 @@ def _jax_aligned(jcfg, jparams, dtype):
         jl, jc = JT.decode_step(jparams, jnp.asarray(t), jc, pos, jcfg)
         out.append(np.asarray(jl))
         pos = pos + 1
-    return {"tokens": toks, "steps": steps, "logits": np.stack(out), "cache": cache0}
+    return {"tokens": toks, "steps": steps, "logits": np.stack(out), "cache": cache0,
+            "max_len": max_len}
 
 
-def _jax_ring(jcfg, jparams, prompt):
+def _jax_ring(jcfg, jparams, prompt, window=WINDOW):
     toks = _tokens((B, prompt), 1)
-    jl, jc = JT.prefill(jparams, jnp.asarray(toks), JT.init_cache(jcfg, B, WINDOW, jnp.float32),
+    jl, jc = JT.prefill(jparams, jnp.asarray(toks), JT.init_cache(jcfg, B, window, jnp.float32),
                         jcfg)
     out = [np.asarray(jl)]
     steps = [_tokens((B,), 20 + i) for i in range(STEPS)]
@@ -138,7 +150,7 @@ def _jax_ring(jcfg, jparams, prompt):
         jl, jc = JT.decode_step(jparams, jnp.asarray(t),
                                 jc, jnp.full((B,), prompt + i, jnp.int32), jcfg)
         out.append(np.asarray(jl))
-    return {"tokens": toks, "steps": steps, "logits": np.stack(out)}
+    return {"tokens": toks, "steps": steps, "logits": np.stack(out), "window": window}
 
 
 def _paged_plan():
@@ -189,12 +201,13 @@ def _jax_moe():
 # the ranks
 # ---------------------------------------------------------------------------
 def _aligned_ranks(cfg, params, ctx, case, dtype):
-    cache = T.init_cache(cfg, B, MAX_LEN, device="cpu", dtype=dtype, ctx=ctx)
+    max_len = case["max_len"]
+    cache = T.init_cache(cfg, B, max_len, device="cpu", dtype=dtype, ctx=ctx)
     prefill = S.make_prefill_step(cfg, ctx)
     decode = S.make_decode_step(cfg, return_logits=True, ctx=ctx)
     lg, cache = prefill(params, {"tokens": torch.from_numpy(case["tokens"]),
                                  "length": torch.from_numpy(LENS)}, cache)
-    full = gather_cache(cache, cfg, ctx, T.init_cache(cfg, B, MAX_LEN, device="meta"))
+    full = gather_cache(cache, cfg, ctx, T.init_cache(cfg, B, max_len, device="meta"))
     out, pos = [lg], torch.from_numpy(LENS).long()
     for t in case["steps"]:
         lg, cache = decode(params, torch.from_numpy(t), cache, pos)
@@ -205,7 +218,7 @@ def _aligned_ranks(cfg, params, ctx, case, dtype):
 
 def _ring_ranks(cfg, params, ctx, case):
     prompt = case["tokens"].shape[1]
-    cache = T.init_cache(cfg, B, WINDOW, device="cpu", dtype=torch.float32, ctx=ctx)
+    cache = T.init_cache(cfg, B, case["window"], device="cpu", dtype=torch.float32, ctx=ctx)
     lg, cache = S.make_prefill_step(cfg, ctx)(params, {"tokens": torch.from_numpy(case["tokens"])},
                                               cache)
     decode = S.make_decode_step(cfg, return_logits=True, ctx=ctx)
@@ -241,8 +254,8 @@ def _paged_ranks(cfg, params, ctx):
 
 def _sched_ranks(cfg, params, ctx):
     return {name: {r: c.tokens for r, c in
-                   Scheduler(cfg, params, ctx=ctx, **kw).run(_requests(Request))["completions"]
-                   .items()}
+                   Scheduler(cfg, params, ctx=ctx, **kw).run(_requests(Request, name))
+                   ["completions"].items()}
             for name, kw in SCHED.items()}
 
 
@@ -277,11 +290,17 @@ def _ranks(device, model, jparams, cases, moe_params):
     bparams = shard_params(params_from_jax(jparams, bcfg, device="cpu"), bcfg, ctx)
     out["aligned_bf16"] = _aligned_ranks(bcfg, bparams, ctx, cases["aligned_bf16"],
                                          torch.bfloat16)[0].float()
+    out["whole"] = _aligned_ranks(cfg, params, ctx, cases["whole"], torch.float32)
+    out["whole_bf16"] = _aligned_ranks(bcfg, bparams, ctx, cases["whole_bf16"],
+                                       torch.bfloat16)[0].float()
     rcfg = cfg.replace(window=WINDOW)
     out["ring"] = _ring_ranks(rcfg, params, ctx, cases["ring"])
     out["ring_long"] = _ring_ranks(rcfg, params, ctx, cases["ring_long"])
     out["odd"] = _ring_ranks(cfg, params, ctx, cases["odd"])
     out["ring_odd"] = _ring_ranks(rcfg, params, ctx, cases["ring_odd"])
+    wcfg = cfg.replace(window=WHOLE)
+    out["ring_whole"] = _ring_ranks(wcfg, params, ctx, cases["ring_whole"])
+    out["ring_whole_long"] = _ring_ranks(wcfg, params, ctx, cases["ring_whole_long"])
     out["paged"] = _paged_ranks(cfg, params, ctx)
     out["moe"] = _moe_ranks(mesh, moe_params)
     return out
@@ -293,21 +312,27 @@ def runs():
     jparams = JT.init(jax.random.PRNGKey(0), jcfg)
     bjcfg = jcfg.replace(dtype="bfloat16")
     wjcfg = jcfg.replace(window=WINDOW)
+    whole_jcfg = jcfg.replace(window=WHOLE)
     want = {"aligned": _jax_aligned(jcfg, jparams, jnp.float32),
             "aligned_bf16": _jax_aligned(bjcfg, jparams, jnp.bfloat16),
+            "whole": _jax_aligned(jcfg, jparams, jnp.float32, WHOLE),
+            "whole_bf16": _jax_aligned(bjcfg, jparams, jnp.bfloat16, WHOLE),
             "ring": _jax_ring(wjcfg, jparams, 3),
             "ring_long": _jax_ring(wjcfg, jparams, 24),
             "odd": _jax_ring(jcfg, jparams, 7),
             "ring_odd": _jax_ring(wjcfg, jparams, 25),
+            "ring_whole": _jax_ring(whole_jcfg, jparams, 3, WHOLE),
+            "ring_whole_long": _jax_ring(whole_jcfg, jparams, 24, WHOLE),
             "paged": _jax_paged(jcfg, jparams),
             "moe": _jax_moe()}
     want["sched"] = {name: {r: c.tokens for r, c in
-                            JScheduler(jcfg, JPCFG, jparams, **kw).run(_requests(JRequest))
+                            JScheduler(jcfg, JPCFG, jparams, **kw).run(_requests(JRequest, name))
                             ["completions"].items()}
                      for name, kw in SCHED.items()}
     nparams = jax.tree.map(np.asarray, jparams)
-    cases = {k: want[k] for k in ("aligned", "aligned_bf16", "ring", "ring_long", "odd",
-                                  "ring_odd")}
+    cases = {k: want[k] for k in ("aligned", "aligned_bf16", "whole", "whole_bf16", "ring",
+                                  "ring_long", "odd", "ring_odd", "ring_whole",
+                                  "ring_whole_long")}
     moe_params = {n: want["moe"][n] for n in (4, 3)}
     got = {(1, 2): launch(2, _ranks, 2, nparams, cases, moe_params, device="cpu", timeout=600),
            (2, 2): launch(4, _ranks, 2, nparams, cases, moe_params, device="cpu", timeout=600)}
@@ -328,6 +353,31 @@ def test_fused_prefill_and_aligned_decode_match_jax(runs):
         for (k, v), (jk, jv) in zip(cache, want["aligned"]["cache"]):
             np.testing.assert_allclose(k, jk, **TOL)
             np.testing.assert_allclose(v, jv, **TOL)
+
+
+def test_whole_cache_prefill_and_aligned_decode_match_jax(runs):
+    """A cache of 15 slots on 2 model ranks: every rank holds the whole
+    rows, the padded prefill (8 tokens: the sequence-sharded region) writes
+    them on every rank, and each decode step's token too; the ranks score
+    every slot with no combine.  The prefill's cache equals JAX's."""
+    want, got = runs
+    for logits, cache in _every_rank(got, "whole"):
+        np.testing.assert_allclose(logits, want["whole"]["logits"], **TOL)
+        for (k, v), (jk, jv) in zip(cache, want["whole"]["cache"]):
+            np.testing.assert_allclose(k, jk, **TOL)
+            np.testing.assert_allclose(v, jv, **TOL)
+    for logits in _every_rank(got, "whole_bf16"):
+        np.testing.assert_allclose(logits, want["whole_bf16"]["logits"], **BF16)
+
+
+@pytest.mark.parametrize("case", ["ring_whole", "ring_whole_long"])
+def test_whole_ring_matches_jax(runs, case):
+    """A 15-slot SWA ring held whole on 2 model ranks: a 3-token prompt (the
+    ring's unwritten slots masked) and a 24-token one (its last 15 tokens
+    kept at their ring slots), then decode steps."""
+    want, got = runs
+    for logits in _every_rank(got, case):
+        np.testing.assert_allclose(logits, want[case]["logits"], **TOL)
 
 
 def test_bf16_model_aligned_decode_matches_jax(runs):

@@ -29,7 +29,8 @@ from repro.models import layers as JL
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import costmodel
 from repro_torch.core import tensor_ops as ops
-from repro_torch.core.dseq import all_gather_dim, all_to_all_dim, copy_d, reduce_sum
+from repro_torch.core.dseq import (all_gather_dim, all_gather_whole, all_to_all_dim, copy_d,
+                                   reduce_scatter_dim, reduce_sum, split_dim)
 from repro_torch.core.mesh import P, ProcessMesh, launch, local_block
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import make_ctx, param_specs
@@ -92,9 +93,21 @@ def _collectives(mesh, x):
     out["copy"] = (g - mesh.all_reduce(c, "sum", M)).abs().max()
     _, (g,) = _grad_blocks(lambda a: (reduce_sum(a, M, mesh), c), [x])
     out["reduce_sum"] = (g - c).abs().max()
+    # the sequence-parallel pair and the way into and out of a replicated block
+    rs = reduce_scatter_dim(c, M, 2, mesh)
+    _, (g,) = _grad_blocks(lambda a: (reduce_scatter_dim(a, M, 2, mesh), rs), [x])
+    out["reduce_scatter"] = (g - all_gather_dim(rs, M, 2, mesh)).abs().max()
+    sp = split_dim(c, M, 2, mesh)
+    _, (g,) = _grad_blocks(lambda a: (split_dim(a, M, 2, mesh), sp), [x])
+    out["split"] = (g - all_gather_dim(sp, M, 2, mesh)).abs().max()
+    _, (g,) = _grad_blocks(lambda a: (all_gather_whole(a, M, 2, mesh),
+                                      all_gather_dim(c, M, 2, mesh)), [x])
+    out["gather_whole"] = (g - c).abs().max()
     # the forward values
     out["all_to_all_fwd"] = all_to_all_dim(x, M, 1, 2, mesh)
     out["all_gather_fwd"] = all_gather_dim(x, M, 2, mesh)
+    out["reduce_scatter_fwd"] = reduce_scatter_dim(x, M, 2, mesh)
+    out["split_fwd"] = split_dim(x, M, 2, mesh)
     return out
 
 
@@ -205,7 +218,8 @@ def test_collectives_backward_is_the_transpose(ranks, inp, mesh):
     blocks = [inp["coll"] * (1 + r) for r in range(4)]
     for r in range(4):
         out = ranks[r][mesh]["coll"]
-        for k in ("all_to_all", "all_gather", "copy", "reduce_sum"):
+        for k in ("all_to_all", "all_gather", "copy", "reduce_sum", "reduce_scatter", "split",
+                  "gather_whole"):
             assert float(out[k]) == 0.0, (k, r)
         group = [q for q in range(4) if _coords(q, shape)["data"] == _coords(r, shape)["data"]]
         m, p = _coords(r, shape)["model"], len(group)
@@ -213,6 +227,9 @@ def test_collectives_backward_is_the_transpose(ranks, inp, mesh):
         np.testing.assert_array_equal(out["all_to_all_fwd"], want)
         np.testing.assert_array_equal(out["all_gather_fwd"],
                                       np.concatenate([blocks[q] for q in group], axis=2))
+        np.testing.assert_allclose(out["reduce_scatter_fwd"], np.split(
+            sum(blocks[q] for q in group), p, axis=2)[m], rtol=1e-6)
+        np.testing.assert_array_equal(out["split_fwd"], np.split(blocks[r], p, axis=2)[m])
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -413,22 +413,23 @@ def test_train_launcher_with_fault_injection(tmp_path):
 
 
 def test_launcher_refuses_what_it_cannot_do(tmp_path):
-    """What a mesh ctx still refuses: the sequence-parallel residual, and a
-    serve cache whose length the model axis does not split, each before
-    any collective; a model axis that does not divide the ranks; and the
-    CPU unless asked."""
+    """What a mesh ctx still refuses, before any collective: the
+    sequence-parallel residual with ``dp_over_model`` (its spec would name
+    ``model`` twice; JAX refuses it too); a model axis that does not divide
+    the ranks; and the CPU unless asked.  A serve cache whose length the
+    model axis does not split is held whole on every rank, as in JAX."""
     from repro_torch.core.mesh import AbstractMesh
     from repro_torch.parallel.sharding import make_ctx
     _, cfg = _cfgs(n_layers=1)
     params = T.init(cfg, torch.Generator().manual_seed(0))
     mesh = AbstractMesh((1, 2), ("data", "model"))
     ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False))
-    with pytest.raises(ValueError, match="does not split 2 ways"):
-        T.init_cache(cfg, 1, 7, device="cpu", ctx=ctx)
+    assert T.init_cache(cfg, 1, 7, device="cpu", ctx=ctx)[0][0].shape[1] == 7
     assert T.init_cache(cfg, 1, 8, device="cpu", ctx=ctx)[0][0].shape[1] == 4
-    sp = make_ctx(mesh, ParallelConfig(fsdp_params=False, sequence_parallel=True))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=sp)
+    both = make_ctx(mesh, ParallelConfig(fsdp_params=False, sequence_parallel=True,
+                                         dp_over_model=True))
+    with pytest.raises(ValueError, match="sequence_parallel with dp_over_model"):
+        T.forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, ctx=both)
     base = ["--device", "cpu", "--steps", "2", "--ckpt-dir", str(tmp_path / "ck")]
     with pytest.raises(ValueError, match="must divide"):
         launcher.main(base + ["--model-parallel", "2"])

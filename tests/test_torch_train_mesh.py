@@ -13,7 +13,16 @@ norm and rate per step, the parameters normwise after the steps): f32
 gradients to 1e-4, bf16 gradients to 2e-2, as
 ``test_torch_train.py::test_train_trajectory_matches_jax`` holds the
 single-device step.  The ZeRO step must match the port's all-reduce step.
-All the port's steps run in one module-scoped launch.
+
+The sequence-parallel residual (``ParallelConfig(sequence_parallel=True)``:
+the residual between the layers is each rank's S/2 rows) is held against
+JAX's single-device ``forward`` and its gradients (of the logits against a
+token-mean cotangent) on the same numpy inputs at
+``tests/test_torch_tensor_ops.py``'s tolerances: the dense llama, an MoE
+config, ``remat="full"`` and a no-grad forward (its attention through the
+flash kernel's plain version); and the bytes its collectives staged equal
+the count reckoned from the shapes.  All the port's runs share one
+module-scoped launch.
 """
 import jax
 import jax.numpy as jnp
@@ -25,16 +34,19 @@ from repro import checkpoint as jckpt
 from repro import config as jconfig
 from repro import configs as jconfigs
 from repro.launch.train import reduced as jreduced
+from repro.models import transformer as JT
 from repro.parallel import steps as JS
 from repro_torch import checkpoint as ckpt
 from repro_torch import configs
 from repro_torch.config import ParallelConfig, TrainConfig
-from repro_torch.convert import train_state_from_jax
-from repro_torch.core.mesh import AbstractMesh, assemble, launch, local_block
+from repro_torch.convert import params_from_jax, train_state_from_jax
+from repro_torch.core.mesh import P, AbstractMesh, assemble, launch, local_block
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.parallel import steps as S
-from repro_torch.parallel.sharding import make_ctx, shard_params
+from repro_torch.parallel.sharding import make_ctx, param_specs, shard_params
 from repro_torch.tree import leaves, tree_map
 
 MESH = (2, 2)
@@ -49,6 +61,10 @@ EXTRA = {"fsdp-tp-ar-dots": dict(fsdp_params=True, remat="dots"),
          "nofsdp-tp-zero-chunk": dict(fsdp_params=False, grad_reduce="reduce_scatter_zero",
                                       logit_chunk=6)}
 TCFG = dict(lr=3e-3, warmup_steps=2, total_steps=8)
+SP_TOL = dict(rtol=1e-4, atol=1e-5)                     # tests/test_torch_tensor_ops.py
+# sequence-parallel runs: (config, remat, gradients taken)
+SP_CASES = {"dense": ("llama", "none", True), "moe": ("moe", "none", True),
+            "remat_full": ("llama", "full", True), "no_grad": ("llama", "none", False)}
 
 
 def _cfgs():
@@ -102,11 +118,49 @@ def _sharded_init(cfg, mesh):
     return out
 
 
-def _ranks(device, jstates, toks):
+def _sp_cfgs(name):
+    """(JAX config, port config): the file's llama, or the reduced Mixtral
+    (two ``attn_moe`` layers, 4 experts over the EP size 2: no capacity
+    drops at these 32 tokens a rank)."""
+    if name == "llama":
+        return _cfgs()
+    kw = dict(dtype="float32", n_layers=2)
+    return (jreduced(jconfigs.get("mixtral-8x22b")).replace(**kw),
+            configs.reduced(configs.get("mixtral-8x22b")).replace(**kw))
+
+
+def _sp_run(name, remat, grad, jparams, toks, cot, mesh) -> dict:
+    """One sequence-parallel forward (and backward of sum(logits * cot)) on
+    this rank's rows and blocks: the logits and, summed over ``data``, the
+    gradients assembled; the bytes staged by the forward and backward."""
+    _, cfg = _sp_cfgs(name)
+    ctx = make_ctx(mesh, ParallelConfig(fsdp_params=False, sequence_parallel=True))
+    full = params_from_jax(jparams, cfg, device="cpu")
+    specs = param_specs(full, cfg, ctx)
+    params = tree_map(lambda x, s: local_block(x, s, mesh).clone().requires_grad_(grad), full,
+                      specs)
+    lspec = P("data", None, L.vocab_axis(cfg, ctx))
+    rows = local_block(torch.from_numpy(toks), P("data"), mesh)
+    staged = mesh.staged_bytes
+    with mesh, torch.set_grad_enabled(grad):
+        lg = T.forward(params, rows, cfg, ctx=ctx, remat=remat)
+        if grad:
+            (lg * local_block(torch.from_numpy(cot), lspec, mesh)).sum().backward()
+    out = {"staged": mesh.staged_bytes - staged,
+           "logits": assemble(lg.detach(), lspec, mesh), "grads": None}
+    if grad:
+        out["grads"] = [assemble(mesh.all_reduce(x.grad, "sum", "data"), s, mesh)
+                        for x, s in zip(leaves(params), leaves(specs))]
+    return out
+
+
+def _ranks(device, jstates, toks, sp_inputs):
     _, cfg = _cfgs()
     mesh = make_local_mesh(2)
     tcfg = TrainConfig(**TCFG)
-    res = {}
+    res = {"sp": {case: _sp_run(name, remat, grad, sp_inputs[name], toks[0],
+                                sp_inputs["cot"][name], mesh)
+                  for case, (name, remat, grad) in SP_CASES.items()}}
     for gdt, jstate in jstates.items():
         for name, kw in LAYOUTS.items():
             res[(gdt, name)] = _run(cfg, ParallelConfig(grad_dtype=gdt, **kw), tcfg, jstate,
@@ -130,14 +184,31 @@ def _jax_trajectory(jcfg, gdt, toks, **pkw):
     return init, metrics, _np(jstate)
 
 
+def _jax_sp(toks):
+    """JAX's single-device ``forward`` of each config and the gradients of
+    sum(logits * cot): the parameters and cotangents (numpy) the ranks
+    take, and the wanted logits and gradients."""
+    inputs, want = {"cot": {}}, {}
+    for name in ("llama", "moe"):
+        jcfg, _ = _sp_cfgs(name)
+        params = JT.init(jax.random.PRNGKey(1), jcfg)
+        logits, vjp = jax.vjp(lambda p: JT.forward(p, jnp.asarray(toks), jcfg)[0], params)
+        # the cotangent of a token mean, as a loss's is
+        cot = (np.random.RandomState(3).randn(*logits.shape) / toks.size).astype(np.float32)
+        inputs[name], inputs["cot"][name] = _np(params), cot
+        want[name] = (np.asarray(logits), _np(vjp(jnp.asarray(cot))[0]))
+    return inputs, want
+
+
 @pytest.fixture(scope="module")
 def runs():
     jcfg, _ = _cfgs()
     toks = _tokens()
     jax_runs = {gdt: _jax_trajectory(jcfg, gdt, toks) for gdt in ("float32", "bfloat16")}
     jax_runs["chunk"] = _jax_trajectory(jcfg, "float32", toks, logit_chunk=6)
+    sp_inputs, jax_runs["sp"] = _jax_sp(toks[0])
     ranks = launch(4, _ranks, {g: jax_runs[g][0] for g in ("float32", "bfloat16")}, toks,
-                   device="cpu", timeout=600)
+                   sp_inputs, device="cpu", timeout=600)
     return jax_runs, ranks[0]
 
 
@@ -207,6 +278,55 @@ def test_sharded_init_equals_the_single_rank_init(runs, name):
     for g, w in zip(got, want):
         w = w.float() if w.dtype == torch.bfloat16 else w
         np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.parametrize("case", list(SP_CASES))
+def test_sequence_parallel_matches_jax(runs, case):
+    """The residual as each rank's S/2 rows (the Megatron sequence-parallel
+    gathers and reduce-scatters; the MoE layer gathers the sequence and
+    keeps its rows) on mesh (2, 2): the logits, and every gradient summed
+    over ``data``, against JAX's single-device ``forward`` and ``jax.vjp``."""
+    jax_runs, ranks = runs
+    name, _, grad = SP_CASES[case]
+    got = ranks["sp"][case]
+    want_logits, want_grads = jax_runs["sp"][name]
+    np.testing.assert_allclose(got["logits"], want_logits, **SP_TOL)
+    if not grad:
+        return
+    _, cfg = _sp_cfgs(name)
+    want = leaves(params_from_jax(want_grads, cfg, device="cpu", dtype=torch.float32))
+    assert len(got["grads"]) == len(want)
+    for g, w in zip(got["grads"], want):
+        np.testing.assert_allclose(g, w.numpy(), **SP_TOL)
+
+
+def _sp_staged_bytes(cfg, b: int, s: int, p: int) -> int:
+    """The bytes one rank stages through the host (``core/mesh.py``: each
+    collective's input copied out and its output copied in) for a
+    sequence-parallel forward and backward of the dense model, f32, on
+    its b rows with tensor parallelism p.  Every forward collective's
+    transpose stages what it staged; the norm scales' gradients are
+    all-reduced (``copy_d``)."""
+    e, d = 4, cfg.d_model
+    m = b * s * d * e                          # a whole (b, s, d) activation
+    rows = m // p + m                          # gather the rows, or reduce-scatter onto them
+    q = 2 * b * s * cfg.n_heads * cfg.hd * e // p          # one all-to-all of q or the output
+    kv = b * s * cfg.n_kv_heads * cfg.hd * e * (p + 1) // p  # the k or the v all-gather
+    layer = 4 * rows + 2 * q + 2 * kv          # in and out of attention and the MLP
+    forward = cfg.n_layers * layer + 2 * rows  # the embedding's sum, the logits' gather
+    return 2 * forward + (2 * cfg.n_layers + 1) * 2 * d * 4
+
+
+def test_sequence_parallel_stages_the_bytes_reckoned_from_the_shapes(runs):
+    _, ranks = runs
+    _, cfg = _sp_cfgs("llama")
+    assert L.vocab_axis(cfg, make_ctx(AbstractMesh(MESH, ("data", "model")),
+                                      ParallelConfig(fsdp_params=False))) == "model"
+    want = _sp_staged_bytes(cfg, BATCH // MESH[0], SEQ, MESH[1])
+    assert ranks["sp"]["dense"]["staged"] == want
+    # the same forward without its backward stages half of the collectives'
+    assert ranks["sp"]["no_grad"]["staged"] == (want - (2 * cfg.n_layers + 1) * 8 *
+                                                cfg.d_model) // 2
 
 
 def test_launcher_on_four_ranks_recovers_and_its_checkpoint_restores_anywhere(tmp_path,
