@@ -130,6 +130,19 @@ After 8, the trainer on a mesh of gloo ranks sharing ``cuda:0``:
                  a rank = 28, nothing else), each rank's kernel against its
                  plain version on its own inputs (bf16 2e-2), rank 0's
                  logits against the one-process bf16 ``forward`` (5e-2);
+  dry run    -- CPU work in this process (``launch/dryrun.py``, the
+                 program on ``meta`` tensors over a recording mesh): "train
+                 tp" and "train tp sp" recorded for each of the 2 ranks
+                 (their model, batch, layout and TrainConfig), each rank's
+                 recorded ``staged_bytes`` equal to the bytes its step
+                 staged on the card, to the byte; the record's FLOPs beside
+                 ``costmodel.model_flops_train``, its argument bytes and
+                 peak estimate beside the ranks' measured peak; then
+                 Llama-3.2-3B x {train_4k, prefill_32k, decode_32k} on the
+                 (16, 16) mesh, each prefill counting 28 abstract flash
+                 launches and the card's flash counters not moving; the
+                 records' roofline table filled into a template under
+                 ``build/`` through ``launch/report.py``;
   train layouts -- full width, depth cut to 2 layers, f32 compute and
                  gradients, on 4 ranks (mesh 2 x 2), in a fresh process under
                  deterministic algorithms: TP with all-reduce, TP + FSDP with
@@ -557,14 +570,6 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, Lq, Lk, hd, causal, window)
 ]
 
 
-def _live_pairs(lq: int, lk: int, causal: bool, window) -> int:
-    """Visible (query, key) pairs of one head: what this run's masks keep."""
-    qpos = np.arange(lq, dtype=np.int64) + (lk - lq)
-    hi = np.minimum(qpos, lk - 1) if causal else np.full(lq, lk - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(lq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _library_flash(q, k, v, causal, window):
     """scaled_dot_product_attention: the yardstick, never used by the port."""
     if window is None:
@@ -624,7 +629,7 @@ def phase_flash_kernels() -> dict:
             library_ms = device_ms([lambda c=c: _library_flash(*c, causal, window)
                                     for c in cases], replays=2 if slow else 10)
             del cases
-            pairs = _live_pairs(lq, lk, causal, window) * b * hq
+            pairs = fa.visible_pairs(lq, lk, causal, window) * b * hq
             bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 4 * hd * pairs, PEAK_OPS_S[dtype])
             rec[(label, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                        library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
@@ -1892,6 +1897,7 @@ def _rank_figures(res: list) -> dict:
                    ("comm_share", lambda h: h["comm_s"] / h["time_s"])):
         out[key] = [float(np.mean([f(h) for h in r["history"][1:]])) for r in res]
     out["peak"] = [r["peak_bytes"] or 0 for r in res]
+    out["staged_steps"] = [[h["staged_bytes"] for h in r["history"]] for r in res]
     return out
 
 
@@ -3414,6 +3420,84 @@ def phase_serve_ranks_whole(served, cfg, dev: str = "cuda") -> None:
              f"{max(rels):.3e}")
 
 
+DRY_TEMPLATE = """# Dry run of the port, Llama-3.2-3B on the (16, 16) mesh
+
+Roofline terms: the cost model's predictions on H100 data-sheet constants
+from the dry run's counts (``launch/dryrun.py``), not measurements.
+
+<!-- ROOFLINE_16x16 -->
+<!-- /ROOFLINE_16x16 -->
+"""
+
+
+def phase_dry_run(cfg, tp: dict, sp_runs: list) -> None:
+    """The dry run (``launch/dryrun.py``), CPU work in this process: one
+    rank's program on ``meta`` over a ``RecordingMesh``.  "train tp" and
+    "train tp sp" (``tp``: "train tp"'s figures; ``sp_runs``: the ranks'
+    "train tp sp" results) recorded for each rank at its coordinates: the
+    recorded staged bytes of a step must equal every step's bytes the rank
+    staged on the card.  Then Llama-3.2-3B x {train_4k, prefill_32k,
+    decode_32k} on (16, 16): JAX's one-line summary each; a prefill counts
+    28 abstract flash launches and no card counter moves.  The records fill
+    a template under ``build/`` through ``launch/report.py``."""
+    from repro_torch import configs
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import costmodel
+    from repro_torch.core.mesh import RecordingMesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun, report
+    pcfg, tcfg, shape = _train_setup(cfg)
+    sp = _rank_figures(sp_runs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model = costmodel.model_flops_train(cfg.param_counts()["active"], tokens)
+    for tag, layout, got in (("train tp", pcfg, tp),
+                             ("train tp sp", dataclasses.replace(pcfg, sequence_parallel=True),
+                              sp)):
+        flops = 0.0
+        for rank in range(2):
+            mesh = RecordingMesh((1, 2), ("data", "model"), (0, rank))
+            raw = dryrun.trace_cell(ARCH, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                    mesh, pcfg=layout, cfg_override=cfg, tcfg=tcfg)
+            flops += raw["flops"]
+            mem, card = raw["memory"], got["staged_steps"][rank]
+            print(f"[dry run] {tag}, rank {rank}: traced in {raw['seconds']:.1f} s; staged a "
+                  f"step recorded {raw['staged_bytes']} B, on the card "
+                  f"{', '.join(str(int(b)) for b in card)} B; FLOPs "
+                  f"{raw['flops']:.4e}; arguments {mem['argument_bytes'] / 1e9:.3f} GB, peak "
+                  f"estimate {mem['peak_estimate_bytes'] / 1e9:.3f} GB against the measured "
+                  f"peak {got['peak'][rank] / 1e9:.3f} GB (ratio "
+                  f"{mem['peak_estimate_bytes'] / max(got['peak'][rank], 1):.3f}); wire "
+                  f"{raw['collectives']['wire_bytes'] / 1e9:.3f} GB", flush=True)
+            if any(raw["staged_bytes"] != b for b in card):
+                fail(f"dry run: {tag} rank {rank} recorded {raw['staged_bytes']} B staged a "
+                     f"step; the card staged {card}")
+        print(f"[dry run] {tag}: FLOPs over both ranks {flops:.4e}; "
+              f"costmodel.model_flops_train {model:.4e}, x 4/3 (full remat) "
+              f"{model * 4 / 3:.4e}: ratio {flops / (model * 4 / 3):.4f}", flush=True)
+    counts = (fa.launches, fa.launches_wgmma)
+    records = []
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(ARCH, shape_name, multi_pod=False)
+        print(f"[dry run] {ARCH} x {shape_name} x 16x16: {time.perf_counter() - t0:.1f} s "
+              f"wall", flush=True)
+        layers = configs.get(ARCH).n_layers
+        want = {"flash_attention_wgmma": layers} if rec["kind"] == "prefill" else {}
+        if rec["kernel_launches"] != want:
+            fail(f"dry run: {shape_name} counted abstract launches {rec['kernel_launches']}; "
+                 f"want {want}")
+        records.append(rec)
+    if (fa.launches, fa.launches_wgmma) != counts:
+        fail(f"dry run: the card's flash counters moved from {counts} to "
+             f"{(fa.launches, fa.launches_wgmma)}")
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "dryrun_16x16.json").write_text(json.dumps(records, indent=1))
+    (out / "dryrun_report.md").write_text(
+        report.fill(DRY_TEMPLATE, str(out / "dryrun_16x16.json")))
+    print((out / "dryrun_report.md").read_text(), flush=True)
+
+
 # ---------------------------------------------------------------------------
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
@@ -3463,6 +3547,7 @@ def main() -> None:
     counts, link = _timed("ranks", phase_distributed)
     tp_figures, sp_runs, sp_tokens = _timed("train tp", phase_train_tp, cfg, train_losses, link)
     _timed("train tp sp", phase_train_tp_sp, cfg, train_losses, tp_figures, sp_runs, sp_tokens)
+    _timed("dry run", phase_dry_run, cfg, tp_figures, sp_runs)
     _timed("train layouts", phase_train_layouts, link)
     _timed("serve moe aligned", phase_serve_moe_aligned)
     _timed("serve moe paged", phase_serve_moe_paged)

@@ -16,7 +16,10 @@ ranks on one device) or on the CPU:
   coordinates;
 * ``spmd(body, mesh, in_specs, out_specs)`` slices global inputs to the rank's
   block by spec (views: no data moves), runs ``body`` inside the mesh, and
-  assembles the outputs by spec.
+  assembles the outputs by spec;
+* ``RecordingMesh(shape, axis_names, coords)`` is one rank of a mesh with no
+  processes behind it, for the dry run (``launch/dryrun.py``): its
+  collectives return empty ``meta`` blocks and tally what they would move.
 
 **Transport.**  Every payload is staged through a host buffer (pinned when
 the tensor is on the card) and back, by one code path for every operation, so
@@ -288,6 +291,143 @@ class ProcessMesh(AbstractMesh):
             if ops:
                 works = dist.batch_isend_irecv(ops)
         pend = Pending(works, finish, ops)
+        return pend if async_op else pend.wait()
+
+
+# ---------------------------------------------------------------------------
+class RecordingMesh(AbstractMesh):
+    """One rank of a mesh with no processes behind it: the dry run's mesh,
+    the counterpart of compiling for fake host devices.
+
+    The rank sits at ``coords`` (default: the last coordinate on every axis,
+    the rank whose end-aligned prefill rows see the most keys) and
+    ``index`` is ``ProcessMesh``'s.  Every collective of ``ProcessMesh``
+    has the same signature here and returns an empty ``meta`` tensor of the
+    shape the real one returns; a one-rank group returns what
+    ``ProcessMesh`` returns and is not tallied.  Each other call is tallied
+    by op kind and group size p (``tally``, ``collective_stats``), with m
+    the result's bytes on this rank and its wire bytes on a ring, as the
+    JAX package's HLO analysis models them:
+
+      all-reduce          2·m·(p−1)/p
+      all-gather          m·(p−1)/p
+      reduce-scatter      m·(p−1)
+      all-to-all          m·(p−1)/p
+      collective-permute  m
+      broadcast           m  (every rank but the source receives m once;
+                              a pipelined ring moves m over each link)
+
+    ``staged_bytes`` counts, independently of ``ProcessMesh``'s code, what
+    its host staging copies each way for this rank: an all-reduce or an
+    all-to-all of x stages 2|x|, an all-gather (1 + p)|x|, a reduce-scatter
+    |x| + |x|/p, a broadcast |x|, a permute |x| for each of sending and
+    receiving (nothing for the pair (r, r)), a one-rank group nothing."""
+
+    KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute", "broadcast")
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], coords=None):
+        super().__init__(shape, axis_names)
+        self.coords = tuple(int(c) for c in (coords if coords is not None
+                                             else [s - 1 for s in self.shape]))
+        if len(self.coords) != len(self.shape) or not all(
+                0 <= c < s for c, s in zip(self.coords, self.shape)):
+            raise ValueError(f"coords {self.coords} lie outside the mesh {self.shape}")
+        self.rank = int(np.ravel_multi_index(self.coords, self.shape))
+        self.staged_bytes = 0
+        self.tally = {}                    # (kind, p) -> count, result and wire bytes
+
+    index = ProcessMesh.index
+    __enter__ = ProcessMesh.__enter__
+    __exit__ = ProcessMesh.__exit__
+
+    def _record(self, kind: str, p: int, shape, like: torch.Tensor, staged: int) -> torch.Tensor:
+        m = math.prod(shape) * like.element_size()
+        wire = {"all-reduce": 2.0 * m * (p - 1) / p, "all-gather": m * (p - 1) / p,
+                "reduce-scatter": float(m * (p - 1)), "all-to-all": m * (p - 1) / p,
+                "collective-permute": float(m), "broadcast": float(m)}[kind]
+        t = self.tally.setdefault((kind, p), {"count": 0, "result_bytes": 0, "wire_bytes": 0.0})
+        t["count"] += 1
+        t["result_bytes"] += m
+        t["wire_bytes"] += wire
+        self.staged_bytes += staged
+        return torch.empty(tuple(shape), dtype=like.dtype, device="meta")
+
+    def collective_stats(self) -> dict:
+        """The tally in the JAX package's form (``per_op`` by kind, with
+        ``broadcast`` added; totals) and by kind and group size."""
+        per_op = {k: {"count": 0, "result_bytes": 0, "wire_bytes": 0.0} for k in self.KINDS}
+        by_group = {}
+        for (kind, p), t in sorted(self.tally.items()):
+            by_group[f"{kind}@{p}"] = dict(t)
+            for key in t:
+                per_op[kind][key] += t[key]
+        return {"per_op": per_op, "by_group": by_group,
+                "wire_bytes": sum(s["wire_bytes"] for s in per_op.values()),
+                "result_bytes": sum(s["result_bytes"] for s in per_op.values())}
+
+    # -- collectives -------------------------------------------------------
+    def all_reduce(self, x: torch.Tensor, op: str, axes) -> torch.Tensor:
+        p = self.size(axes)
+        if op not in ("sum", "min", "max"):
+            raise ValueError(f"all_reduce op {op!r}")
+        if p == 1:
+            return x
+        n = x.numel() * x.element_size()
+        return self._record("all-reduce", p, x.shape, x, 2 * n)
+
+    def broadcast(self, x: torch.Tensor, src: int, axes) -> torch.Tensor:
+        p = self.size(axes)
+        if p == 1:
+            return x
+        return self._record("broadcast", p, x.shape, x, x.numel() * x.element_size())
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        p = self.size(axes)
+        if p == 1:
+            return x[None]
+        n = x.numel() * x.element_size()
+        return self._record("all-gather", p, (p,) + tuple(x.shape), x, (1 + p) * n)
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        p = self.size(axes)
+        if p == 1:
+            return x
+        n = x.numel() * x.element_size()
+        return self._record("all-to-all", p, x.shape, x, 2 * n)
+
+    def reduce_scatter_sum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        p = self.size(axes)
+        if p == 1:
+            return x
+        if x.shape[0] % p:
+            raise ValueError(f"leading dim {x.shape[0]} does not split {p} ways")
+        n = x.numel() * x.element_size()
+        return self._record("reduce-scatter", p, (x.shape[0] // p,) + tuple(x.shape[1:]), x,
+                            n + n // p)
+
+    def permute(self, x: torch.Tensor, perm, axes, *, async_op: bool = False):
+        p = self.size(axes)
+        srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+        if len(set(srcs)) < len(perm) or len(set(dsts)) < len(perm) or \
+                not all(0 <= i < p for i in srcs + dsts):
+            raise ValueError(f"perm {perm} must send from and to each of the "
+                             f"{p} indices at most once")
+        me = self.index(axes)
+        if p == 1:
+            out = x.clone() if (me, me) in perm else torch.zeros_like(x)
+            pend = Pending([], lambda: out)
+            return pend if async_op else pend.wait()
+        n = x.numel() * x.element_size()
+        sends = any(s == me and d != me for s, d in perm)
+        receives = any(d == me and s != me for s, d in perm)
+        out = self._record("collective-permute", p, x.shape, x, n if sends else 0)
+
+        def finish():
+            if receives:
+                self.staged_bytes += n
+            return out
+        pend = Pending([], finish)
         return pend if async_op else pend.wait()
 
 

@@ -4,7 +4,9 @@
 the fused prefill of the end-aligned engine, ``models/layers.py``).  For
 tensors on the card it launches a hand-written Hopper kernel of
 ``csrc/flash_attention.cu`` or raises; for tensors on the CPU it runs
-``flash_attention_ref``, the plain PyTorch version.  Nothing else selects
+``flash_attention_ref``, the plain PyTorch version; for ``meta`` tensors
+(the dry run, ``launch/dryrun.py``) it returns an empty output and adds the
+kernel's work to the dry run's tally (``_meta_rule``).  Nothing else selects
 the path, and no failure falls back to another kernel or to the plain
 version.
 
@@ -42,9 +44,10 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, _meta
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 # what the kernel is built for: (q, k/v) dtypes, head size, shared memory
@@ -119,16 +122,43 @@ def _smem_bytes(hd: int) -> int:
     return 4 * (dmax * _BQ + 2 * dmax * _BKV + _BQ * (_BKV + 4))
 
 
+def visible_pairs(lq: int, lk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask leaves visible, queries end-aligned to
+    the keys (row i at key position i + lk - lq)."""
+    qpos = np.arange(lq, dtype=np.int64) + (lk - lq)
+    hi = np.minimum(qpos, lk - 1) if causal else np.full(lq, lk - 1, dtype=np.int64)
+    lo = np.zeros(lq, dtype=np.int64) if window is None else np.maximum(qpos - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _meta_rule(q, k, v, causal, window) -> torch.Tensor:
+    """The dry run's rule on ``meta`` tensors: an empty output laid out as
+    the kernel's (a (B, Hq, Lq, D) view of a (B, Lq, Hq, D) tensor), and the
+    kernel's work added to the active tally (``kernels/_meta.py``): 4·D
+    FLOPs a visible (query, key) pair and head (Q·Kᵀ and P·V), q, k, v read
+    once and the output written once.  No kernel runs and no counter moves."""
+    b, hq, lq, hd = q.shape
+    lk = k.shape[2]
+    out = torch.empty((b, lq, hq, hd), dtype=q.dtype, device="meta").transpose(1, 2)
+    flops = 4 * hd * b * hq * visible_pairs(lq, lk, causal, window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    _meta.record(f"flash_attention_{_route(q.dtype, k.dtype, hd)}", flops, nbytes)
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention with queries aligned to the end of the keys: the route's
-    CUDA kernel for tensors on the card, the plain version on the CPU."""
+    CUDA kernel for tensors on the card, the plain version on the CPU, the
+    dry run's meta rule (``_meta_rule``) on ``meta`` tensors."""
     global launches, launches_wgmma
     _check(q, k, v, window)
     tensors = (q, k, v)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if all(t.device.type == "meta" for t in tensors):
+        return _meta_rule(q, k, v, causal, window)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"flash_attention takes tensors all on the CPU or all on one "
                          f"CUDA device; got {[str(t.device) for t in tensors]}")

@@ -751,9 +751,14 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
         split = lk > ck.shape[1]              # else whole: every rank holds every slot
         per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
         if s == 1 and not per_row:
-            # a scalar position: JAX's dynamic_update_slice clamp, then per row
-            cache_pos = torch.as_tensor(min(max(int(cache_pos), 0), lk - 1),
-                                        device=x.device).expand(b)
+            # a scalar position: JAX's dynamic_update_slice clamp, then per
+            # row; read on the host, but a ``meta`` position (the dry run's)
+            # has no value and is clamped as a tensor
+            if torch.is_tensor(cache_pos) and cache_pos.device.type == "meta":
+                cache_pos = torch.clamp(cache_pos, 0, lk - 1).expand(b)
+            else:
+                cache_pos = torch.as_tensor(min(max(int(cache_pos), 0), lk - 1),
+                                            device=x.device).expand(b)
             per_row = True
         if per_row:
             # the token is written on the rank that owns its slot (on every

@@ -161,9 +161,23 @@ def _expert_ffn(xs, sizes, w_gate, w_up, w_down, dtype) -> torch.Tensor:
 
 def _sizes(eid: torch.Tensor, n: int) -> List[int]:
     """Rows per expert id in ``[0, n)`` (ids outside are not counted), on
-    the host: the grouped product's loop bounds."""
+    the host: the grouped product's loop bounds.  On ``meta`` (the dry run,
+    where routing has no values) the balanced split: every row counted,
+    spread evenly over the n experts, so the grouped products' FLOPs are
+    exact whatever the routing."""
+    if eid.device.type == "meta":
+        q, r = divmod(eid.numel(), n)
+        return [q + (i < r) for i in range(n)]
     eid = eid[(eid >= 0) & (eid < n)]
     return torch.bincount(eid, minlength=n).tolist()
+
+
+def _kept(mask: torch.Tensor, full: int) -> torch.Tensor:
+    """The indices where ``mask`` holds, in order; on ``meta`` the balanced
+    routing's: ``full`` of them, the body's static capacity filled."""
+    if mask.device.type == "meta":
+        return torch.empty((full,), dtype=torch.int64, device="meta")
+    return torch.nonzero(mask).squeeze(1)
 
 
 def _combine(ys: torch.Tensor, slots: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -211,7 +225,7 @@ def _body_ep(x_e, route, w_gate, w_up, w_down, cfg, dtype, *, ep: int, shard: in
     e_local = e.n_experts // ep
     cap = max(8, min(int(math.ceil(t * k / ep * e.capacity_factor)), t * k))
     flat_e = top_i.reshape(-1)
-    mine = torch.nonzero(flat_e // e_local == shard).squeeze(1)[:cap]   # first come
+    mine = _kept(flat_e // e_local == shard, cap)[:cap]   # first come
     eid = flat_e[mine] - shard * e_local
     g_order = torch.argsort(eid, stable=True)
     slots = mine[g_order]
@@ -237,7 +251,7 @@ def _body_a2a(x_flat, x_sh, route, w_gate, w_up, w_down, shared, cfg, dtype, ctx
     flat_e = top_i.reshape(-1)
     dest = flat_e // e_local
     slot = torch.cumsum(F.one_hot(dest, dp), dim=0).gather(1, dest[:, None])[:, 0] - 1
-    sel = torch.nonzero(slot < cap).squeeze(1)
+    sel = _kept(slot < cap, min(t * k, dp * cap))
     place = dest[sel] * cap + slot[sel]                      # (dest, slot) flat
     send = x_flat.new_zeros((dp * cap, d), dtype=dtype).index_put(
         (place,), x_flat.index_select(0, sel // k).to(dtype))
