@@ -47,6 +47,16 @@ steps return
 the same global logits on every rank and sampling draws from the same
 seeded generator, so every rank takes the same tokens; a rank whose tokens
 differ from the others' raises (``_agree``), rank 0 does not overrule it.
+
+Spans (``runtime/trace.py``; recorded only while a ``torch.profiler``
+profile records): ``engine.tick`` an iteration of ``run``'s loop (rows
+decoding, admits, chunks); ``engine.admit`` a non-empty end-aligned or
+recurrent admission up to its first token on the host and its row insert,
+``engine.chunk`` a paged prefill chunk (``tokens`` each); ``step.prefill``
+the prefill or chunk step's call; ``step.decode`` the decode step from its
+inputs' copy to its tokens on the host (rows); ``sync`` each wait for the
+device (``site``: ``h2d``, ``first_token``, ``decode``, ``agree``,
+``run_end``; ``models/`` adds ``paged_write`` and the MoE's).
 """
 from __future__ import annotations
 
@@ -62,6 +72,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.dseq import all_gather_dim
 from repro_torch.models import transformer as T
 from repro_torch.parallel import steps as S
+from repro_torch.runtime import trace
 from repro_torch.serving import BlockPool
 from repro_torch.tree import leaves
 
@@ -202,14 +213,18 @@ class Scheduler:
         self._queue: List[Request] = []
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        # a copy from pageable host memory waits for the stream to drain
+        with trace.span("sync", site="h2d"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _first_token(self, logits: torch.Tensor) -> int:
         if self.sampling:
             tok = sample_tokens(logits, self._gen, self.temperature, self.top_p)
         else:
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return int(self._agree(tok)[0])
+        tok = self._agree(tok)
+        with trace.span("sync", site="first_token"):
+            return int(tok[0])
 
     def _agree(self, tokens: torch.Tensor) -> torch.Tensor:
         """Under a ctx: the ranks' tokens side by side (one all-gather over
@@ -218,8 +233,9 @@ class Scheduler:
         if self.ctx is None:
             return tokens
         mesh = self.ctx.mesh
-        got = all_gather_dim(tokens[None], mesh.axis_names, 0, mesh)
-        bad = [r for r in range(got.shape[0]) if not torch.equal(got[r], got[0])]
+        with trace.span("sync", site="agree"):
+            got = all_gather_dim(tokens[None], mesh.axis_names, 0, mesh)
+            bad = [r for r in range(got.shape[0]) if not torch.equal(got[r], got[0])]
         if bad:
             raise RuntimeError(f"ranks {bad} took other tokens than rank 0: "
                                f"{got[bad].tolist()} against {got[0].tolist()}")
@@ -306,18 +322,20 @@ class Scheduler:
             self._insert(self._row(self._bucketed(1)), slot)
             self._tok[slot], self._pos[slot] = self.bos, 0
             return None
-        if not self.fused:
-            return self._admit_recurrent(prompt, slot)
-        lb = self._bucketed(lp)
-        toks = np.zeros((1, lb), np.int32)
-        toks[0, :lp] = prompt
-        batch = {"tokens": self._to_device(toks),
-                 "length": torch.tensor([lp], dtype=torch.int32, device=self.device)}
-        logits, row = self._prefill(self.params, batch, self._row(lb))
-        first = self._first_token(logits)
-        self._insert(row, slot)
-        self._tok[slot], self._pos[slot] = first, lp
-        return first
+        with trace.span("engine.admit", tokens=lp):
+            if not self.fused:
+                return self._admit_recurrent(prompt, slot)
+            lb = self._bucketed(lp)
+            toks = np.zeros((1, lb), np.int32)
+            toks[0, :lp] = prompt
+            batch = {"tokens": self._to_device(toks),
+                     "length": self._to_device(np.array([lp], np.int32))}
+            with trace.span("step.prefill"):
+                logits, row = self._prefill(self.params, batch, self._row(lb))
+            first = self._first_token(logits)
+            self._insert(row, slot)
+            self._tok[slot], self._pos[slot] = first, lp
+            return first
 
     def _admit_recurrent(self, prompt: np.ndarray, slot: int) -> int:
         """Recurrent admission: the prompt through unpadded B=1 decode steps
@@ -325,9 +343,10 @@ class Scheduler:
         first token."""
         lp = int(prompt.shape[0])
         row = self._row(self._bucketed(lp))
-        for i in range(lp):
-            logits, row = self._step_logits(self.params, self._to_device(prompt[i:i + 1]),
-                                            row, i)
+        with trace.span("step.prefill"):
+            for i in range(lp):
+                logits, row = self._step_logits(
+                    self.params, self._to_device(prompt[i:i + 1]), row, i)
         first = self._first_token(logits)
         self._insert(row, slot)
         self._tok[slot], self._pos[slot] = first, lp
@@ -354,20 +373,21 @@ class Scheduler:
         lp = int(prompt.shape[0])
         lo = st.cursor
         ln = min(self.chunk, lp - lo)
-        self.pool.ensure(st.req.rid, lo + ln)
-        toks = np.zeros((1, self.chunk), np.int32)
-        toks[0, :ln] = prompt[lo:lo + ln]
-        table = self.pool.table(st.req.rid, self.n_pages)[None]
-        logits, self.cache = self._chunk_prefill(
-            self.params, self._to_device(toks), self.cache, lo,
-            self._to_device(table), ln)
-        st.cursor = lo + ln
-        if st.cursor < lp:
-            return None
-        st.state = "decode"
-        first = self._first_token(logits)
-        self._tok[slot], self._pos[slot] = first, lp
-        return first
+        with trace.span("engine.chunk", tokens=ln):
+            self.pool.ensure(st.req.rid, lo + ln)
+            toks = np.zeros((1, self.chunk), np.int32)
+            toks[0, :ln] = prompt[lo:lo + ln]
+            table = self.pool.table(st.req.rid, self.n_pages)[None]
+            args = (self._to_device(toks), self.cache, lo, self._to_device(table), ln)
+            with trace.span("step.prefill"):
+                logits, self.cache = self._chunk_prefill(self.params, *args)
+            st.cursor = lo + ln
+            if st.cursor < lp:
+                return None
+            st.state = "decode"
+            first = self._first_token(logits)
+            self._tok[slot], self._pos[slot] = first, lp
+            return first
 
     # ------------------------------------------------------------------
     def run(self, requests: Sequence[Request] = (), *,
@@ -415,70 +435,81 @@ class Scheduler:
                 on_token(st.req.rid, tok)
 
         while pending or active:
-            while pending and free and pending[0].arrival <= tick:
-                if self.paged and not self.pool.can_admit(
-                        len(pending[0].prompt) + pending[0].gen):
-                    break          # FIFO head waits for pages to free up
-                req = pending.popleft()
-                slot = free.pop()
-                st = _Slot(req=req, admitted_tick=tick,
-                           admitted_s=time.perf_counter() - t0)
-                active[slot] = st
+            with trace.span("engine.tick") as span:
+                admits = chunks = 0
+                while pending and free and pending[0].arrival <= tick:
+                    if self.paged and not self.pool.can_admit(
+                            len(pending[0].prompt) + pending[0].gen):
+                        break          # FIFO head waits for pages to free up
+                    req = pending.popleft()
+                    slot = free.pop()
+                    st = _Slot(req=req, admitted_tick=tick,
+                               admitted_s=time.perf_counter() - t0)
+                    active[slot] = st
+                    admits += 1
+                    if self.paged:
+                        self._admit_paged(req, slot, st)
+                    else:
+                        first = self._admit(req, slot)
+                        if first is not None:
+                            prefills += 1
+                            emit(slot, first)
+                            if len(st.tokens) >= req.gen:
+                                finish(slot)
                 if self.paged:
-                    self._admit_paged(req, slot, st)
-                else:
-                    first = self._admit(req, slot)
-                    if first is not None:
-                        prefills += 1
-                        emit(slot, first)
-                        if len(st.tokens) >= req.gen:
-                            finish(slot)
-            if self.paged:
-                # chunked prefill: one fixed-shape chunk per prefilling slot
-                # per tick, interleaved with the decode tick below
-                for slot in list(active):
-                    st = active[slot]
-                    if st.state != "prefill":
-                        continue
-                    first = self._prefill_chunk_tick(slot, st)
-                    if first is not None:
-                        emit(slot, first)
-                        if len(st.tokens) >= st.req.gen:
-                            finish(slot)
-            decoding = [s for s, st in active.items() if st.state == "decode"]
-            if not decoding:
-                if active:
-                    tick += 1      # prefill-only tick still advances time
-                else:
-                    # nothing resident: fast-forward the virtual clock
-                    tick = pending[0].arrival if pending else tick + 1
-                continue
-            args = (self._to_device(self._tok), self.cache, self._to_device(self._pos))
-            if self.paged:
-                # alloc-on-write: this tick's token lands at pos, so each
-                # decoding row's chain must cover pos+1 tokens (reserved at
-                # admission -- ensure can't fail); refresh the device tables
-                for slot in decoding:
-                    st = active[slot]
-                    self.pool.ensure(st.req.rid, int(self._pos[slot]) + 1)
-                    self._tables[slot] = self.pool.table(st.req.rid, self.n_pages)
-                args += (self._to_device(self._tables),)
-            out, self.cache = self._decode(self.params, *args)
-            if self.sampling:
-                out = sample_tokens(out, self._gen, self.temperature, self.top_p)
-            nxt = self._agree(out).cpu().numpy()   # host sync = the stream point
-            tick += 1
-            decode_steps += 1
-            for slot in decoding:
-                if slot not in active:
+                    # chunked prefill: one fixed-shape chunk per prefilling
+                    # slot per tick, interleaved with the decode tick below
+                    for slot in list(active):
+                        st = active[slot]
+                        if st.state != "prefill":
+                            continue
+                        chunks += 1
+                        first = self._prefill_chunk_tick(slot, st)
+                        if first is not None:
+                            emit(slot, first)
+                            if len(st.tokens) >= st.req.gen:
+                                finish(slot)
+                decoding = [s for s, st in active.items() if st.state == "decode"]
+                span.set(rows=len(decoding), admits=admits, chunks=chunks)
+                if not decoding:
+                    if active:
+                        tick += 1      # prefill-only tick still advances time
+                    else:
+                        # nothing resident: fast-forward the virtual clock
+                        tick = pending[0].arrival if pending else tick + 1
                     continue
-                self._pos[slot] += 1
-                self._tok[slot] = nxt[slot]
-                emit(slot, int(nxt[slot]))
-                if len(active[slot].tokens) >= active[slot].req.gen:
-                    finish(slot)
+                if self.paged:
+                    # alloc-on-write: this tick's token lands at pos, so each
+                    # decoding row's chain must cover pos+1 tokens (reserved
+                    # at admission -- ensure can't fail); refresh the tables
+                    for slot in decoding:
+                        st = active[slot]
+                        self.pool.ensure(st.req.rid, int(self._pos[slot]) + 1)
+                        self._tables[slot] = self.pool.table(st.req.rid, self.n_pages)
+                with trace.span("step.decode", rows=len(decoding)):
+                    args = (self._to_device(self._tok), self.cache,
+                            self._to_device(self._pos))
+                    if self.paged:
+                        args += (self._to_device(self._tables),)
+                    out, self.cache = self._decode(self.params, *args)
+                    if self.sampling:
+                        out = sample_tokens(out, self._gen, self.temperature, self.top_p)
+                    out = self._agree(out)
+                    with trace.span("sync", site="decode"):
+                        nxt = out.cpu().numpy()   # host sync = the stream point
+                tick += 1
+                decode_steps += 1
+                for slot in decoding:
+                    if slot not in active:
+                        continue
+                    self._pos[slot] += 1
+                    self._tok[slot] = nxt[slot]
+                    emit(slot, int(nxt[slot]))
+                    if len(active[slot].tokens) >= active[slot].req.gen:
+                        finish(slot)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with trace.span("sync", site="run_end"):
+                torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         out = {
             "completions": done,

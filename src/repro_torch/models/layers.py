@@ -110,6 +110,7 @@ from repro_torch.core.tensor_ops import foopar_matmul_col, foopar_matmul_row
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.parallel.sharding import leaf_spec
+from repro_torch.runtime import trace
 from repro_torch.tree import tree_map
 
 Params = dict
@@ -292,7 +293,8 @@ def _write_pages(arena: torch.Tensor, entry: torch.Tensor, off: torch.Tensor,
     out-of-range block).  PyTorch raises or faults on an out-of-range index,
     so dead rows are removed first, never clamped: a clamped write would
     land on a live page."""
-    live = torch.nonzero(entry >= 0).squeeze(1)
+    with trace.span("sync", site="paged_write"):     # nonzero reads the count back
+        live = torch.nonzero(entry >= 0).squeeze(1)
     arena[entry[live].long(), off[live].long()] = rows[live].to(arena.dtype)
 
 

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.dseq import all_to_all_dim, copy_d, reduce_sum
 from repro_torch.core.mesh import AbstractMesh
+from repro_torch.runtime import trace
 
 Params = dict
 _DRAW_ELEMS = 2 ** 28       # an expert leaf is drawn in f32 slices of at most 1 GiB
@@ -132,7 +133,8 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, k: int):
     logits = torch.matmul(x_flat.float(), router_w.float())
     top_v, top_i = top_k(logits, k)
     if routes is not None:
-        routes.append(top_i.detach().cpu())
+        with trace.span("sync", site="moe_routes"):
+            routes.append(top_i.detach().cpu())
     return top_i, torch.softmax(top_v, dim=-1), torch.softmax(logits, dim=-1)
 
 
@@ -168,8 +170,9 @@ def _sizes(eid: torch.Tensor, n: int) -> List[int]:
     if eid.device.type == "meta":
         q, r = divmod(eid.numel(), n)
         return [q + (i < r) for i in range(n)]
-    eid = eid[(eid >= 0) & (eid < n)]
-    return torch.bincount(eid, minlength=n).tolist()
+    with trace.span("sync", site="moe_sizes"):
+        eid = eid[(eid >= 0) & (eid < n)]
+        return torch.bincount(eid, minlength=n).tolist()
 
 
 def _kept(mask: torch.Tensor, full: int) -> torch.Tensor:
@@ -177,7 +180,8 @@ def _kept(mask: torch.Tensor, full: int) -> torch.Tensor:
     routing's: ``full`` of them, the body's static capacity filled."""
     if mask.device.type == "meta":
         return torch.empty((full,), dtype=torch.int64, device="meta")
-    return torch.nonzero(mask).squeeze(1)
+    with trace.span("sync", site="moe_kept"):
+        return torch.nonzero(mask).squeeze(1)
 
 
 def _combine(ys: torch.Tensor, slots: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
