@@ -21,6 +21,12 @@ error:
                  -1 entries and partial pages; per shape the split count,
                  and the split and combine kernels' device times from a
                  profiler trace; then the serve shape with scale=0.05;
+                 then the end-aligned decode's rows read through the
+                 kernel at the benchmark cells' shapes (ChatGLM3-6B: B 128
+                 x L 5120 and B 64 x L 7168, Hkv 2, rep 16, hd 128, bf16,
+                 about 27% of each row live), timed beside the bytes
+                 bound, the plain route (``_sdpa`` over the whole rows)
+                 and ``scaled_dot_product_attention``;
                  matmul at 4096^3 in f32 (the TMA-fed FFMA tile) and f16
                  (the wgmma tile), both also ragged (1000 x 1032 x 520: TMA
                  zero fill, bounded stores) and with f16 output, and the
@@ -78,8 +84,10 @@ Between 6 and 7, on the same model and request mix as 4:
                  fused prefill per admission (bucket 16, max_len 576),
                  through the wgmma flash kernel in every layer, so its launch
                  count must equal non-empty admissions x 28 (and the CUDA-core
-                 flash kernel's 0); prints the share of greedy tokens equal
-                 to the paged engine's (not gated);
+                 flash kernel's 0), and every decode step reads the rows
+                 through the paged-attention kernel (launches = decode steps
+                 x 28); prints the share of greedy tokens equal to the paged
+                 engine's (not gated);
   oracle aligned -- one served request re-run teacher-forced through a fused
                  prefill and end-aligned decode steps, against ``forward``.
 
@@ -166,7 +174,8 @@ the kernels' launch counts just before its run and reads them just after):
                  depth cut from 56 to 4 layers (20.8 GB; the whole model is
                  282 GB), through ``Scheduler(paged=False)`` on the llama
                  phases' mix: tensor-core flash launches = non-empty
-                 admissions x 4; then one served request teacher-forced
+                 admissions x 4, paged launches = decode steps x 4 (the
+                 decode over the rows); then one served request teacher-forced
                  through a fused prefill and end-aligned decode steps
                  against ``forward``, both in f32 arithmetic on the served
                  bf16 weights (f32 cache), with the (token, layer) top-2
@@ -181,8 +190,9 @@ the kernels' launch counts just before its run and reads them just after):
   serve hybrid, serve xlstm -- Zamba2-1.2B and xLSTM-1.3B at full width,
                  depth cut to 19 of 38 and 24 of 48 layers (whole periods of
                  their block patterns), 4 requests of 128 + 32 tokens on 2 slots through
-                 the per-token recurrent prefill; the f32 oracle through
-                 B=1 decode steps;
+                 the per-token recurrent prefill (paged launches: decode
+                 steps x Zamba2's shared-attention layers, none in xLSTM);
+                 the f32 oracle through B=1 decode steps;
   serve encdec -- Whisper-base at full size: the flash kernel checked at
                  the encoder's shape (non-causal, L 1500, hd 64), then stub
                  frames (1, 1500, 512) through ``make_prefill_step`` and 32
@@ -556,6 +566,84 @@ def phase_kernels() -> dict:
     return rec
 
 
+# the end-aligned decode's rows at the benchmark cells' decode shapes
+# (ChatGLM3-6B, 2 kv heads of 16 query heads, hd 128): (label, slots B,
+# max_len L); each row's length drawn exponential with a mean of 28% of L,
+# clipped to [1, L], as the cells' rows are 27-29% live
+ROWS_CASES = [("glm6b.conv", 128, 5120), ("glm6b.code", 64, 7168)]
+ROWS_HKV, ROWS_REP, ROWS_HD, ROWS_LIVE = 2, 16, 128, 0.28
+
+
+def phase_rows_kernel() -> None:
+    """The end-aligned decode's route at the cells' shapes: the rows (B, L,
+    Hkv, hd) read as an arena of B * L / 256 pages through the kernel
+    (``layers._rows_decode``), held against ``paged_attention_ref`` on the
+    same view and timed beside its bytes bound, the plain route the decode
+    took before (``_sdpa`` over every whole row, causal at each row's
+    position) and ``scaled_dot_product_attention`` over the rows with a
+    length mask."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import layers as L
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, lk in ROWS_CASES:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q = torch.randn((b, 1, ROWS_HKV, ROWS_REP, ROWS_HD), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.randn((b, lk, ROWS_HKV, ROWS_HD), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        drawn = np.random.RandomState(5).exponential(ROWS_LIVE * lk, size=b)
+        lengths = torch.from_numpy(np.clip(drawn, 1, lk).astype(np.int32)).cuda()
+        pos = (lengths - 1).long()
+        blk = L.rows_block(lk)
+        arena = (b * lk // blk, blk, ROWS_HKV, ROWS_HD)
+        table = L._rows_table(b, lk // blk, ck.device)
+        before = pa.launches
+        got = L._rows_decode(q, ck, cv, lengths)
+        want = pa.paged_attention_ref(q[:, 0], ck.view(arena), cv.view(arena), table,
+                                      lengths)[:, None]
+        plain = L._sdpa(q, ck, cv, causal=True, window=None, q_offset=pos)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL[torch.bfloat16]
+        err = (got.float() - want.float()).abs().max().item()
+        err_plain = (got.float() - plain.float()).abs().max().item()
+        if pa.launches != before + 1 or not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) or \
+                not torch.allclose(got.float(), plain.float(), atol=tol, rtol=tol):
+            fail(f"rows decode {label}: max |kernel - plain| {err:.3e}, against _sdpa "
+                 f"{err_plain:.3e} (atol=rtol={tol:g}), {pa.launches - before} launches")
+        del want, plain
+        mask = torch.arange(lk, device="cuda")[None] < lengths[:, None]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(b, ROWS_HKV * ROWS_REP, 1, ROWS_HD), ck.transpose(1, 2),
+                cv.transpose(1, 2), attn_mask=mask[:, None, None], enable_gqa=True)
+        ms = device_ms([lambda: L._rows_decode(q, ck, cv, lengths)])
+        split_ms, combine_ms = _paged_kernel_ms(
+            [(q[:, 0].contiguous(), ck.view(arena), cv.view(arena), table, lengths)])
+        plain_ms = device_ms([lambda: L._sdpa(q, ck, cv, causal=True, window=None,
+                                              q_offset=pos)])
+        library_ms = device_ms([library])
+        live = int(lengths.sum())
+        nbytes = 2 * live * ROWS_HKV * ROWS_HD * 2 + 2 * q.numel() * 2 + b * 4
+        bound_ms, by, _, _ = _bound(nbytes, 4 * live * ROWS_HKV * ROWS_REP * ROWS_HD,
+                                    PEAK_OPS_S[torch.float32])
+        n_splits, pps = pa.split_plan(b, ROWS_HKV, lk // blk, n_sm)
+        kern = ("split and combine kernels not seen by the profiler" if split_ms is None
+                else f"split kernel {split_ms * 1e3:.1f} us + combine kernel "
+                     f"{combine_ms * 1e3:.1f} us (profiler)")
+        print(f"[kernels] rows decode {label} bf16 (B {b} x L {lk}, Hkv {ROWS_HKV}, rep "
+              f"{ROWS_REP}, hd {ROWS_HD}, block {blk}; S {n_splits} of {pps} pages; "
+              f"{live} live positions, {live / (b * lk):.3f} of the rows): max|kernel-plain| "
+              f"{err:.3e}, against _sdpa {err_plain:.3e} (atol=rtol={tol:g}); kernel "
+              f"{ms * 1e3:.1f} us ({kern}), plain route (_sdpa over the whole rows) "
+              f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.1f} us ({nbytes} B over {PEAK_BYTES_S:.3g} B/s, by {by}); "
+              f"kernel share of the bound {100 * bound_ms / ms:.1f}%", flush=True)
+        del q, ck, cv, got
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # flash attention: the end-aligned engine's fused prefill and ``forward``
 FLASH_CASES = [  # (label, B, Hq, Hkv, Lq, Lk, hd, causal, window)
@@ -792,15 +880,16 @@ def phase_serve_aligned(cfg, params, paged_comps):
     """The end-aligned engine on the paged phase's request mix: one fused
     prefill per admission, through the flash kernel in each of the layers."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.scheduler import Scheduler, make_requests
     sched = Scheduler(cfg, params, slots=SLOTS, max_len=PROMPT + GEN, bucket=BUCKET)
     sched.run(make_requests(2, PROMPT, 2, cfg.vocab))          # warmup
     sched.reset()
     torch.cuda.reset_peak_memory_stats()
     reqs = make_requests(N_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
-    fa.launches = fa.launches_wgmma = 0
+    fa.launches = fa.launches_wgmma = pa.launches = 0
     out = sched.run(reqs)
-    launches, simt = fa.launches_wgmma, fa.launches
+    launches, simt, paged = fa.launches_wgmma, fa.launches, pa.launches
     comps = out["completions"]
     if sorted(comps) != list(range(N_REQ)):
         fail(f"served {sorted(comps)} of {N_REQ} requests")
@@ -813,6 +902,10 @@ def phase_serve_aligned(cfg, params, paged_comps):
         fail(f"flash_attention wgmma launches {launches} (CUDA-core kernel {simt}), fused "
              f"prefills {out['prefills']}; want {admissions} non-empty admissions x "
              f"{cfg.n_layers} layers = {want} wgmma launches and none of the other kernel")
+    want_paged = out["decode_steps"] * cfg.n_layers
+    if paged != want_paged or not want_paged:
+        fail(f"paged_attention launches {paged}; want decode steps {out['decode_steps']} x "
+             f"{cfg.n_layers} layers = {want_paged}: the decode reads the rows through it")
     ttft = sorted(c.ttft_s for c in comps.values())
     same = sum(a == b for i in comps for a, b in zip(comps[i].tokens, paged_comps[i].tokens))
     print(f"[serve aligned] {cfg.name} bf16, {N_REQ} req x ({PROMPT} prompt + {GEN} gen), "
@@ -820,7 +913,7 @@ def phase_serve_aligned(cfg, params, paged_comps):
           f"in {out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
           f"decode steps, {out['prefills']} fused prefills, {launches} flash_attention "
-          f"(wgmma) launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"(wgmma) launches, {paged} paged_attention launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"greedy tokens equal to the paged engine's at {same} of {N_REQ * GEN} positions "
           f"({same / (N_REQ * GEN):.3f}, not gated)", flush=True)
     return comps, launches
@@ -2072,10 +2165,11 @@ def layouts_body(link) -> None:
 MOE_ALIGNED_ARCH, MOE_ALIGNED_DEPTH = "mixtral-8x22b", 4    # 56 layers would be 282 GB
 MOE_PAGED_ARCH, MOE_PAGED_DEPTH = "kimi-k2-1t-a32b", 1      # 61 layers would be 2.1 TB
 KIMI_REQ, KIMI_PROMPT, KIMI_GEN = 4, 256, 32
-# arch -> (tag, depth): one of Zamba2's two 19-layer periods (both
-# ``mamba2_attn`` layers), three of xLSTM's six 8-layer periods (sLSTM
-# included); the full depths took 97-133 s of the script's 1200
-RECURRENT_ARCHS = {"zamba2-1.2b": ("hybrid", 19), "xlstm-1.3b": ("xlstm", 24)}
+# arch -> (tag, depth, attention layers): one of Zamba2's two 19-layer
+# periods (both ``mamba2_attn`` layers, whose decode reads the rows through
+# the paged-attention kernel), three of xLSTM's six 8-layer periods (sLSTM
+# included; no attention); the full depths took 97-133 s of the script's 1200
+RECURRENT_ARCHS = {"zamba2-1.2b": ("hybrid", 19, 2), "xlstm-1.3b": ("xlstm", 24, 0)}
 REC_REQ, REC_PROMPT, REC_GEN, REC_SLOTS = 4, 128, 32, 2
 WHISPER_PROMPT, WHISPER_GEN, WHISPER_FRAMES = 4, 32, 1500
 FAMILY_ARCHS = ("mixtral-8x22b", "kimi-k2-1t-a32b", "zamba2-1.2b", "xlstm-1.3b",
@@ -2293,10 +2387,12 @@ def phase_serve_moe_aligned() -> int:
     out, counts = _serve_family("serve moe aligned", cfg, params, reqs, 16, slots=SLOTS,
                                 max_len=PROMPT + GEN, bucket=BUCKET)
     admissions = sum(1 for r in reqs if len(r.prompt) > 0)
-    want = {"flash_wgmma": admissions * cfg.n_layers, "flash_simt": 0, "paged": 0}
-    if counts != want or out["prefills"] != admissions:
+    want = {"flash_wgmma": admissions * cfg.n_layers, "flash_simt": 0,
+            "paged": out["decode_steps"] * cfg.n_layers}
+    if counts != want or out["prefills"] != admissions or not want["paged"]:
         fail(f"serve moe aligned: launches {counts}, prefills {out['prefills']}; want {want} "
-             f"({admissions} non-empty admissions x {cfg.n_layers} layers)")
+             f"({admissions} non-empty admissions x {cfg.n_layers} layers, decode steps x "
+             f"{cfg.n_layers} layers)")
     comp = out["completions"][0]
     _oracle_f32("oracle moe aligned", cfg, params, reqs[0].prompt, comp,
                 _aligned_path(params, PROMPT, GEN))
@@ -2344,20 +2440,22 @@ def phase_serve_moe_paged() -> int:
 def phase_serve_recurrent(arch: str) -> None:
     """Zamba2 / xLSTM at full width, depth ``RECURRENT_ARCHS``, through the
     end-aligned engine's per-token recurrent prefill (no kernel on this
-    path: decode attention is ``_sdpa``, the engines are products and
-    elementwise ops)."""
+    path: its B=1 steps' attention is ``_sdpa``, the engines are products
+    and elementwise ops); the decode steps read Zamba2's shared-attention
+    rows through the paged-attention kernel."""
     from repro_torch import configs
     from repro_torch.launch.scheduler import make_requests
-    tag, depth = RECURRENT_ARCHS[arch]
+    tag, depth, attn = RECURRENT_ARCHS[arch]
     full = configs.get(arch)
     cfg = full.replace(n_layers=depth)
     params = _family_init(cfg, full.n_layers)
     reqs = make_requests(REC_REQ, REC_PROMPT, REC_GEN, cfg.vocab, stagger=STAGGER)
     out, counts = _serve_family(f"serve {tag}", cfg, params, reqs, 8, slots=REC_SLOTS,
                                 max_len=REC_PROMPT + REC_GEN)
-    if out["prefills"] != REC_REQ or any(counts.values()):
+    want = {"flash_wgmma": 0, "flash_simt": 0, "paged": out["decode_steps"] * attn}
+    if out["prefills"] != REC_REQ or counts != want or (attn and not want["paged"]):
         fail(f"serve {arch}: {out['prefills']} per-token prefills, launches {counts}; want "
-             f"{REC_REQ} and none")
+             f"{REC_REQ} and {want}")
     _oracle_f32(f"oracle {tag}", cfg, params, reqs[0].prompt, out["completions"][0],
                 _recurrent_path(params, REC_PROMPT, REC_GEN))
     del params
@@ -3520,6 +3618,7 @@ def main() -> None:
     from repro_torch.models import transformer as T
     _timed("build", phase_build)
     rec = _timed("kernels: paged attention", phase_kernels)
+    _timed("kernels: rows decode", phase_rows_kernel)
     flash = _timed("kernels: flash attention", phase_flash_kernels)
     tile = _timed("kernels: matmul, matmul_acc, minplus", phase_tile_kernels)
     cfg = configs.get(ARCH)
@@ -3551,7 +3650,7 @@ def main() -> None:
     _timed("train layouts", phase_train_layouts, link)
     _timed("serve moe aligned", phase_serve_moe_aligned)
     _timed("serve moe paged", phase_serve_moe_paged)
-    for arch, (tag, _) in RECURRENT_ARCHS.items():
+    for arch, (tag, _, _) in RECURRENT_ARCHS.items():
         _timed(f"serve {tag}", phase_serve_recurrent, arch)
     _timed("serve encdec", phase_serve_encdec)
     _timed("train families", phase_train_families)

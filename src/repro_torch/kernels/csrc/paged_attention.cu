@@ -432,6 +432,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   return cudaGetLastError();
 }
 
+// Built whole, the library holds every (q, arena) dtype pair, group and lane
+// group; built with REPRO_PA_Q, REPRO_PA_KV (dtype codes), REPRO_PA_REP and
+// REPRO_PA_G (lanes a token) defined, it holds that one instantiation and
+// answers any other with cudaErrorNotSupported, so a caller that launches one
+// shape compiles one kernel in place of 48.
+template <typename T> constexpr int dtype_code();
+template <> constexpr int dtype_code<__nv_bfloat16>() { return 0; }
+template <> constexpr int dtype_code<float>() { return 1; }
+
+template <typename TQ, typename TKV, int REP, int kG, typename... Args>
+cudaError_t launch_built(Args... args) {
+#ifdef REPRO_PA_REP
+  constexpr bool built = dtype_code<TQ>() == REPRO_PA_Q && dtype_code<TKV>() == REPRO_PA_KV &&
+                         REP == REPRO_PA_REP && kG == REPRO_PA_G;
+#else
+  constexpr bool built = true;
+#endif
+  if constexpr (built)
+    return launch<TQ, TKV, REP, kG>(args...);
+  else
+    return cudaErrorNotSupported;
+}
+
 // the GQA group sizes of the repository's archs (Hq / Hkv)
 template <typename TQ, typename TKV>
 cudaError_t launch_rep(int rep, const void* q, const void* k, const void* v,
@@ -440,10 +463,10 @@ cudaError_t launch_rep(int rep, const void* q, const void* k, const void* v,
                        float scale, cudaStream_t s) {
 #define REPRO_REP_CASE(R)                                                                  \
   case R:                                                                                  \
-    return hd <= 128 ? launch<TQ, TKV, R, 16>(q, k, v, tables, lengths, out, ws, b, hkv, hd, \
-                                              n_blocks, blk, pages, pps, scale, s)          \
-                     : launch<TQ, TKV, R, 32>(q, k, v, tables, lengths, out, ws, b, hkv, hd, \
-                                              n_blocks, blk, pages, pps, scale, s);
+    return hd <= 128 ? launch_built<TQ, TKV, R, 16>(q, k, v, tables, lengths, out, ws, b, hkv, \
+                                                    hd, n_blocks, blk, pages, pps, scale, s)  \
+                     : launch_built<TQ, TKV, R, 32>(q, k, v, tables, lengths, out, ws, b, hkv, \
+                                                    hd, n_blocks, blk, pages, pps, scale, s);
   switch (rep) {
     REPRO_REP_CASE(1)
     REPRO_REP_CASE(2)

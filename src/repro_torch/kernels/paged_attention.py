@@ -62,6 +62,21 @@ def split_plan(batch: int, hkv: int, pages: int, n_sm: int) -> tuple:
     return -(-pages // pps), pps
 
 
+def kernel_takes(q_dtype: torch.dtype, kv_dtype: torch.dtype, rep: int, hd: int) -> bool:
+    """Whether the kernel is built for these (q, arena) dtypes, this GQA
+    group and this head size (at most 256, in 16-byte K/V rows)."""
+    return ((q_dtype, kv_dtype) in _KERNEL_DTYPES and rep in _KERNEL_REPS and hd <= 256
+            and hd * kv_dtype.itemsize % 16 == 0)
+
+
+def _variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, rep: int, hd: int) -> tuple:
+    """The macros that build only the instantiation a launch takes: the
+    (q, arena) dtype codes, the group and the lanes of a token (16 for
+    hd <= 128, else 32)."""
+    return (("REPRO_PA_Q", _DTYPE_CODE[q_dtype]), ("REPRO_PA_KV", _DTYPE_CODE[kv_dtype]),
+            ("REPRO_PA_REP", rep), ("REPRO_PA_G", 16 if hd <= 128 else 32))
+
+
 def _smem_bytes(rep: int, hd: int, kv_bytes: int, pps: int) -> int:
     """The split block's dynamic shared memory (``smem_bytes`` in the
     source): table entries, the warps' rings of 2 KB K and V chunks, and
@@ -152,10 +167,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     b, hkv, rep, hd = q.shape
     n_blocks, blk, pages = k_pages.shape[0], k_pages.shape[1], block_tables.shape[1]
     n_splits, pps = split_plan(b, hkv, pages, _sm_count(q.device.index or 0))
-    esz = k_pages.element_size()
-    smem = _smem_bytes(rep, hd, esz, pps)
-    if (q.dtype, k_pages.dtype) not in _KERNEL_DTYPES or rep not in _KERNEL_REPS or \
-            hd > 256 or (hd * esz) % 16 or smem > _SMEM_LIMIT:
+    smem = _smem_bytes(rep, hd, k_pages.element_size(), pps)
+    if not kernel_takes(q.dtype, k_pages.dtype, rep, hd) or smem > _SMEM_LIMIT:
         raise ValueError(f"the kernel takes (q, arena) dtypes in bf16/bf16, f32/f32, "
                          f"f32/bf16, rep in {_KERNEL_REPS}, hd <= 256 with 16-byte K/V "
                          f"rows, and at most 227 KB of shared memory; got {q.dtype}/"
@@ -167,7 +180,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     # each split's acc, then its (m, l), in f32; none when one split writes out
     ws = torch.empty(b * hkv * n_splits * rep * (hd + 2), dtype=torch.float32,
                      device=q.device) if n_splits > 1 else None
-    lib = _build.load("paged_attention")
+    lib = _build.load("paged_attention", _variant(q.dtype, k_pages.dtype, rep, hd))
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
         fn.restype = ctypes.c_int

@@ -293,7 +293,10 @@ def trace_cell(arch: str, shape, mesh: RecordingMesh, pcfg=None, cfg_override=No
     cell, cfg, pcfg, fn, args, parts = prepare_cell(arch, shape, mesh, pcfg, cfg_override,
                                                     tcfg)
     arg_bytes = _nbytes(args)
-    arg_storages = {id(t.untyped_storage()) for t in _tensors(args)}
+    # held through the step: the step replaces some argument tensors (a
+    # recurrent state anew), and a freed storage's id could be taken by an
+    # output's and counted as an alias
+    arg_storages = {id(s): s for s in (t.untyped_storage() for t in _tensors(args))}
     staged0 = mesh.staged_bytes
     t0 = time.perf_counter()
     with _Counting() as op, _meta.tallying() as kt, FlopCounterMode(display=False) as fc:

@@ -97,6 +97,7 @@ The output leaves through the row-parallel ``wo``, whose partial products
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -108,7 +109,7 @@ from repro_torch.core.dseq import (all_gather_dim, all_gather_whole, all_to_all_
                                    reduce_scatter_dim, reduce_sum, split_dim)
 from repro_torch.core.tensor_ops import foopar_matmul_col, foopar_matmul_row
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import kernel_takes, paged_attention
 from repro_torch.parallel.sharding import leaf_spec
 from repro_torch.runtime import trace
 from repro_torch.tree import tree_map
@@ -322,6 +323,42 @@ def _flash(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, lq, hkv, rep, hd)
 
 
+def rows_block(lk: int) -> Optional[int]:
+    """The page size under which end-aligned rows of ``lk`` slots are read
+    as a page arena: the largest power of two in 16..256 dividing ``lk``;
+    None when none does."""
+    return next((blk for blk in (256, 128, 64, 32, 16) if lk % blk == 0), None)
+
+
+def rows_decode_takes(q_dtype: torch.dtype, kv_dtype: torch.dtype, rep: int, hd: int,
+                      lk: int) -> bool:
+    """Whether the decode over end-aligned rows of ``lk`` slots goes through
+    the paged-attention kernel (``_rows_decode``): the kernel's dtypes,
+    group and head size, and rows that split into pages."""
+    return kernel_takes(q_dtype, kv_dtype, rep, hd) and rows_block(lk) is not None
+
+
+@functools.lru_cache(maxsize=64)
+def _rows_table(b: int, pages: int, device: torch.device) -> torch.Tensor:
+    """The fixed block table of ``b`` rows viewed as an arena of ``b *
+    pages`` pages: row i owns pages ``i * pages + arange(pages)``.  Made
+    once a shape and device, never inside a step."""
+    return torch.arange(b * pages, dtype=torch.int32, device=device).view(b, pages)
+
+
+def _rows_decode(q, ck, cv, lengths) -> torch.Tensor:
+    """One query token a row over the end-aligned rows, through the
+    paged-attention kernel: the rows (B, L, Hkv, hd) are read as an arena of
+    B * L / blk pages (a view, no copy) under the fixed table, each row's
+    slots [0, ``lengths``) once, in the cache's dtype.  q (B, 1, Hkv, rep,
+    hd), lengths (B,) int32; returns (B, 1, Hkv, rep, hd)."""
+    b, lk, hkv, hd = ck.shape
+    blk = rows_block(lk)
+    arena = (b * lk // blk, blk, hkv, hd)
+    return paged_attention(q[:, 0].contiguous(), ck.view(arena), cv.view(arena),
+                           _rows_table(b, lk // blk, ck.device), lengths)[:, None]
+
+
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -387,6 +424,14 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
         else:
             _write_prefill(ck, cv, k, v, cache_pos, 0)
         new_cache = (ck, cv)
+        # a decode of one token a row reads slots [0, cache_pos + 1) (the
+        # causal mask; a parked row all of them), or on a ring its first
+        # pos + 1 slots until the first wrap: through the kernel where it
+        # takes the shapes (each row's K/V read once, up to its length),
+        # else ``_sdpa`` (every whole row, widened to f32)
+        rows = (per_row and s == 1 and ctx is None and not q.requires_grad and ck.is_contiguous()
+                and cv.is_contiguous()
+                and rows_decode_takes(q.dtype, ck.dtype, rep, hd, lk))
         if s > lk:
             # prefill longer than the ring: attend the full in-flight k/v
             # (the cache holds only the trailing window)
@@ -395,13 +440,20 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
             # ring decode: before the first wrap only pos+1 slots hold real
             # tokens (the untouched slots would soak up softmax mass)
             valid = torch.clamp(positions[..., -1] + 1, max=lk)
-            out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
-                        kv_len_valid=valid)
+            if rows:
+                out = _rows_decode(q, ck, cv, valid.to(torch.int32))
+            else:
+                out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
+                            kv_len_valid=valid)
         elif isinstance(cache_pos, int) and cache_pos == 0:
             # fused prefill from position 0: Lq == Lk == s over the rows just
             # written, in the cache's dtype as JAX reads them (keys past s
             # are causally invisible)
             out = _flash(q, ck[:, :s], cv[:, :s], causal=True, window=cfg.window)
+        elif rows:
+            # rows shorter than a window (``init_cache`` caps a ring at it):
+            # the window masks nothing
+            out = _rows_decode(q, ck, cv, torch.clamp(cache_pos + 1, max=lk).to(torch.int32))
         else:
             # end-aligned: query position == cache_pos
             out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)

@@ -19,6 +19,7 @@ meta rule, the MoE routing on ``meta`` and the dry-run CLI.
   writes a record that ``roofline.table`` reads.
 """
 import json
+import weakref
 
 import numpy as np
 import pytest
@@ -205,3 +206,27 @@ def test_cli_writes_a_record_roofline_reads(tmp_path, capsys):
     assert len(row) == 1 and "ERROR" not in row[0] and f"| {dom} |" in row[0]
     roofline.main([str(out)])
     assert "| llama3.2-3b | decode_32k |" in capsys.readouterr().out
+
+
+def test_alias_holds_the_arguments_storages_through_the_step(monkeypatch):
+    """A step that drops argument tensors (a recurrent state written anew)
+    frees no argument storage while the trace runs, so an output's storage
+    can never take a freed one's id and count as an alias: only the cache
+    the step hands back is."""
+    freed = []
+
+    def prepare(arch, shape, mesh, pcfg, cfg_override, tcfg):
+        state = [torch.empty(1024, device="meta") for _ in range(8)]
+        cache = torch.empty(16, device="meta")
+
+        def step(state, cache):
+            refs = [weakref.ref(t.untyped_storage()) for t in state]
+            state.clear()
+            freed.append(sum(r() is None for r in refs))
+            return [torch.empty(1024, device="meta") for _ in range(8)], cache
+        return None, None, None, step, (state, cache), {"state": state, "cache": cache}
+
+    monkeypatch.setattr(dryrun, "prepare_cell", prepare)
+    raw = dryrun.trace_cell("any", "any", dryrun.recording_mesh())
+    assert freed == [0]
+    assert raw["memory"]["alias_bytes"] == 16 * 4

@@ -8,6 +8,7 @@ plain version there); here the wrapper must take the plain version because
 the tensors lie on the CPU.
 """
 import inspect
+import json
 import math
 import os
 import subprocess
@@ -279,3 +280,38 @@ def test_serve_shape_block_leaves_room_for_four_on_an_sm():
     bf16 arenas, 4 pages a split) lets four blocks share an SM's 228 KB
     (1 KB of it reserved a block), so the 288 blocks run in one wave."""
     assert 4 * (pa._smem_bytes(3, 128, 2, 4) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtypes,rep,hd,macros", [
+    ((torch.bfloat16, torch.bfloat16), 16, 128, "0.0.16.16"),
+    ((torch.float32, torch.bfloat16), 3, 256, "1.0.3.32"),
+    ((torch.float32, torch.float32), 1, 64, "1.1.1.16"),
+])
+def test_a_launch_builds_only_its_own_instantiation(tmp_path, monkeypatch, dtypes, rep, hd,
+                                                    macros):
+    """The wrapper's library is the variant of its launch: ``nvcc`` gets the
+    launch's dtype codes, group and lanes a token as macros, which the
+    source reads, and the library is named by them; the whole source keeps
+    its own library, built with no macro."""
+    from repro_torch.kernels import _build
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport json, sys\n"
+                    "a = sys.argv[1:]\nopen(a[a.index('-o') + 1], 'w').write(json.dumps(a))\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    variant = pa._variant(*dtypes, rep, hd)
+    report = _build.build([("paged_attention", variant), "paged_attention"])
+    assert sorted(report) == sorted(["paged_attention", f"paged_attention.{macros}"])
+    lib = _build.library_path(("paged_attention", variant))
+    assert lib.name == f"libpaged_attention.{macros}.so"
+    argv = json.loads(lib.read_text())
+    defines = [a for a in argv if a.startswith("-D")]
+    assert defines == [f"-D{k}={v}" for k, v in zip(
+        ("REPRO_PA_Q", "REPRO_PA_KV", "REPRO_PA_REP", "REPRO_PA_G"), macros.split("."))]
+    whole = json.loads(_build.library_path("paged_attention").read_text())
+    assert not [a for a in whole if a.startswith("-D")]
+    source = _build.sources()["paged_attention"].read_text()
+    assert all(f"== {k}" in source for k, _ in variant)
+    # built once: a second request finds the library
+    assert _build.build([("paged_attention", variant)])[lib.stem[3:]]["seconds"] == 0.0

@@ -153,6 +153,32 @@ def test_swa_ring_prefill_and_decode_match_jax(tiny):
     _assert_cache_close(cache, jcache, BF16_CACHE)
 
 
+def test_swa_ring_decode_through_the_kernel_matches_jax(tiny):
+    """window 16: a ring of 16 slots takes the paged-attention kernel's
+    route (its plain version here); rows at 11 and 13 decode eight steps
+    each, across the ring's first wrap, against JAX."""
+    jcfg, cfg, jparams, params = _with(tiny, window=16)
+    toks = _tokens((2, 13), cfg.vocab, 4)
+    lens = np.array([11, 13], np.int32)
+    jl, jcache = JT.prefill(jparams, jnp.asarray(toks), JT.init_cache(jcfg, 2, 32), jcfg,
+                            length=jnp.asarray(lens))
+    pl, cache = T.prefill(params, torch.from_numpy(toks),
+                          T.init_cache(cfg, 2, 32, device="cpu"), cfg,
+                          length=torch.from_numpy(lens))
+    assert cache[0][0].shape[1] == 16
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+    jdec = jax.jit(lambda p, t, c, pos: JT.decode_step(p, t, c, pos, jcfg))
+    tok, pos = np.asarray(jl).argmax(-1).astype(np.int32), lens.copy()
+    for _ in range(8):
+        jl, jcache = jdec(jparams, jnp.asarray(tok), jcache, jnp.asarray(pos))
+        pl, cache = T.decode_step(params, torch.from_numpy(tok), cache,
+                                  torch.from_numpy(pos), cfg)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+        tok, pos = np.asarray(jl).argmax(-1).astype(np.int32), pos + 1
+    assert (pos > 16).all()
+    _assert_cache_close(cache, jcache, BF16_CACHE)
+
+
 def test_parked_row_write_past_the_cache_is_dropped(tiny):
     """A row at ``pos == max_len`` (a parked slot) rides the decode step:
     its write drops, never clamps onto a live slot, and the live row's
