@@ -7,11 +7,14 @@ Every request is submitted before ``run`` starts; ``records.Recorder``
 stamps each streamed token, opens the window after the mix's
 ``warm_completions`` and ends the run at its close.  What comes before the
 open (imports, the kernel build or its cache, the weights, the opening
-burst of the loop) is set-up.  After the close the program's state is
-freed and the reference judges a sample of the finished requests.
+burst of the loop) is set-up.  The steps are built through the logits tap
+(``bench/tap.py``), which keeps the program's logits for the check.  After
+the close the program's state is freed and the configuration's model
+module judges a sample of the finished requests (``bench/check.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import subprocess
 import sys
@@ -23,6 +26,7 @@ from typing import Optional
 import torch
 
 from bench import check, records, spec, traffic, weights
+from bench.tap import Tap
 from bench.trace import Trace
 
 # modules the process that prints a result may not hold once the window
@@ -75,10 +79,11 @@ def _profiler():
 
 
 def serve(model: dict, mix: dict, params, reqs, seconds: float, seed: int, *,
-          prof=None):
+          prof=None, tap: Optional[Tap] = None):
     """The timed path: a closed loop of ``mix["clients"]`` users through
-    ``Scheduler.run`` until the window closes.  Returns (the recording,
-    refused requests, the device's peak bytes)."""
+    ``Scheduler.run`` until the window closes, with its steps built through
+    ``tap`` if one is given.  Returns (the recording, the requests
+    accepted, refused requests, the device's peak bytes)."""
     from repro_torch.launch.scheduler import Request, Scheduler
     eng = mix["engine"]
     if mix["clients"] != eng["slots"]:
@@ -89,7 +94,8 @@ def serve(model: dict, mix: dict, params, reqs, seconds: float, seed: int, *,
         kw.update(block=eng["block"], chunk=eng["chunk"], pool_blocks=eng["pool_blocks"])
     else:
         kw.update(bucket=eng["bucket"])
-    sched = Scheduler(port_config(model), params, **kw)
+    with tap.installed() if tap is not None else contextlib.nullcontext():
+        sched = Scheduler(port_config(model), params, **kw)
     accepted, refused = [], 0
     for prompt, gen in reqs:
         try:
@@ -100,8 +106,16 @@ def serve(model: dict, mix: dict, params, reqs, seconds: float, seed: int, *,
     rec = records.Recorder([g for _, g in accepted], mix["warm_completions"], seconds,
                            on_open=prof.start if prof is not None else None,
                            on_close=prof.stop if prof is not None else None)
+    on_token = rec.on_token
+    if tap is not None:
+        tap.attach(sched, [len(p) for p, _ in accepted], [g for _, g in accepted],
+                   check.ranks(seed, len(accepted)))
+
+        def on_token(rid: int, tok: int) -> None:
+            rec.on_token(rid, tok)
+            tap.on_token(rid, tok, len(rec.tokens[rid]) - 1, rec.open is not None)
     try:
-        sched.run(on_token=rec.on_token)
+        sched.run(on_token=on_token)
     except records.WindowClosed:
         pass
     else:
@@ -109,6 +123,8 @@ def serve(model: dict, mix: dict, params, reqs, seconds: float, seed: int, *,
                            f"window closed; the mix needs more")
     sched.reset()
     del sched
+    if tap is not None:
+        tap.detach()
     dev = params["embed"]["embedding"].device
     peak = 0
     if dev.type == "cuda":
@@ -120,23 +136,45 @@ def serve(model: dict, mix: dict, params, reqs, seconds: float, seed: int, *,
     return rec, accepted, refused, peak
 
 
+@dataclass
+class Served:
+    """A cell served from the seed: BENCHMARK.json, the configuration
+    file, the mix, the model module, the weights, the prompts served, the
+    recorded run, refused requests, the device's peak bytes and the tap."""
+    bench: dict
+    cfg: dict
+    mix: dict
+    module: object
+    params: dict
+    prompts: list
+    run: records.Run
+    refused: int
+    peak: int
+    tap: Optional[Tap]
+
+
 def serve_cell(cell_name: str, seed: int, seconds: float, *, root: Path = spec.ROOT,
-               device: str = "cuda", prof=None) -> tuple:
-    """The cell's model, weights and traffic from the seed, then ``serve``.
-    Returns (BENCHMARK.json, the configuration file, the mix, the weights,
-    the prompts served, the recorded run, refused requests, peak bytes)."""
+               device: str = "cuda", prof=None, tapped: bool = True) -> Served:
+    """The cell's model, weights and traffic from the seed, then ``serve``
+    (through the logits tap unless ``tapped`` is false)."""
     bench = spec.benchmark(root)
     cell = spec.cell(bench, cell_name)
     cfg = spec.config(bench, cell["config"], root)
     mix = spec.traffic(cell["traffic"], root)
     model = cfg["model"]
-    params = weights.make(model, seed, torch.device(device))
+    module = spec.model_module(cfg, root)
+    dev = torch.device(device)
+    params = weights.make(model, seed, dev, module.leaf_plan(model))
     reqs = traffic.generate(mix, model["vocab"], seed)
-    rec, accepted, refused, peak = serve(model, mix, params, reqs, seconds, seed, prof=prof)
-    eng = mix["engine"]
+    eng, plan = mix["engine"], mix["check"]
+    tap = Tap(slots=eng["slots"], rows=plan["tokens_each"], keep=plan["requests"] + 1,
+              vocab=model["vocab"], device=dev) if tapped else None
+    rec, accepted, refused, peak = serve(model, mix, params, reqs, seconds, seed, prof=prof,
+                                         tap=tap)
     run = records.Run(rec, [len(p) for p, _ in accepted], eng["slots"],
                       eng["chunk"] if eng["paged"] else None)
-    return bench, cfg, mix, params, [p for p, _ in accepted], run, refused, peak
+    return Served(bench, cfg, mix, module, params, [p for p, _ in accepted], run, refused,
+                  peak, tap)
 
 
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
@@ -146,8 +184,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     t_start = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
     prof = _profiler() if trace and dev.type == "cuda" else None
-    bench, cfg, mix, params, prompts, run, refused, peak = serve_cell(
-        cell_name, seed, seconds, root=root, device=device, prof=prof)
+    sv = serve_cell(cell_name, seed, seconds, root=root, device=device, prof=prof)
+    bench, cfg, mix, run = sv.bench, sv.cfg, sv.mix, sv.run
     model = cfg["model"]
     tr = Trace.from_profiler(prof, run.window_s) if prof is not None else None
     measured = Measured(run, tr, model, mix)
@@ -163,13 +201,14 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
                    for m in spec.metrics(bench, cell_name, "end_to_end")
                    if (v := end_to_end(m["name"], run, t_start)) is not None}
 
-    cmp = check.compare(run, params, model, prompts, seed, mix["check"], dev)
-    numbers = check.numbers(cmp, cfg["check"])
+    cmp = check.compare(run, sv.params, model, sv.prompts, seed, mix["check"], dev,
+                        logits=sv.module.logits, tap=sv.tap)
+    numbers = check.numbers(cmp, cfg["check"], root)
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-                   "count": 1, "memory_peak_bytes": int(peak)}
+                   "count": 1, "memory_peak_bytes": int(sv.peak)}
     result = {"correct": all(n["ok"] for n in numbers.values()),
-              "attempted": int(len(run.attempted()) + refused), "failed": int(refused),
+              "attempted": int(len(run.attempted()) + sv.refused), "failed": int(sv.refused),
               "metrics": metrics, "device": device_info}
     if tr is not None:
         device_info.update(busy_s=tr.busy_s(), window_s=tr.window_s)

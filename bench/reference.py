@@ -1,4 +1,8 @@
-"""The plain reference of the served models, in float32 with TF32 off.
+"""The default model module: the plain reference of the attention models
+that a configuration file without a ``reference`` key describes, in float32
+with TF32 off.  A configuration whose layers this module lacks names a
+module of its own (``spec.model_module``), with the same ``logits``
+signature and a ``leaf_plan`` (here: ``weights.leaf_plan``).
 
 It follows a configuration file's ``model`` block and the weight tree that
 ``weights.make`` lays out, and imports only torch: no kernel, cache,

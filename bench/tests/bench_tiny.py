@@ -1,9 +1,10 @@
 """A checkout-shaped directory with tiny cells, for the CPU tests: the
-benchmark's own metric readers beside a dense and an MoE model of a few
-thousand parameters and short mixes on both engines."""
+benchmark's own metric readers and check statistics beside a dense and an
+MoE model of a few thousand parameters and short mixes on both engines."""
 from __future__ import annotations
 
 import functools
+import inspect
 import json
 import shutil
 import sys
@@ -22,11 +23,16 @@ MOE = {"name": "tinymoe", "family": "moe", "n_layers": 2, "d_model": 64, "n_head
        "block_pattern": ["attn_moe"], "rope_theta": 1e6, "window": 128, "norm_eps": 1e-5,
        "dtype": "bfloat16", "moe": {"n_experts": 8, "top_k": 2, "d_ff_expert": 64}}
 # the tiny models' limits: the dense model's widest gap reads 0.00-0.03 in
-# sound CPU runs and 0.5-0.6 in the float8 control; the MoE model's mean gap
-# 0.0005-0.015 and 0.08-0.19 (its widest gap swings up to 2 on routing
-# flips in the served precision)
+# sound CPU runs and 0.3-0.6 in the float8 control.  The MoE model's widest
+# gap swings up to 2 on routing flips in the served precision, so it is
+# judged by the logits tap alone: the 75th percentile of the logit error
+# reads 0.012-0.015 sound and 0.20-0.29 in the control (the dense model's
+# 0.011-0.012 and 0.15-0.17), 0.8-1.4 under a state or batch fault.  A
+# served token that is not the argmax of the program's own logits is
+# counted exactly, limit 0
 SLOTS = 32
-LIMITS = {"tiny": {"max_logit_gap": 0.15}, "tinymoe": {"mean_logit_gap": 0.04}}
+LIMITS = {"tiny": {"max_logit_gap": 0.15, "served_not_argmax": 0},
+          "tinymoe": {"served_not_argmax": 0, "logit_err_p75": 0.05}}
 
 
 def mix(paged: bool) -> dict:
@@ -49,7 +55,8 @@ def make_root(tmp: Path) -> Path:
     root = Path(tmp)
     (root / "bench" / "configs").mkdir(parents=True)
     (root / "bench" / "traffic").mkdir(parents=True)
-    shutil.copytree(REPO / "bench" / "metrics", root / "bench" / "metrics")
+    for part in ("metrics", "checks"):
+        shutil.copytree(REPO / "bench" / part, root / "bench" / part)
     for model in (DENSE, MOE):
         cfg = {"name": model["name"], "source": "test", "model": model,
                "check": LIMITS[model["name"]]}
@@ -73,6 +80,23 @@ def make_root(tmp: Path) -> Path:
     }
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
+
+
+def model_module(root: Path, name: str, edits=()) -> str:
+    """Write ``bench/models/<name>.py`` under ``root``: a copy of
+    ``bench/reference.py`` with ``weights.leaf_plan`` beside it, each
+    (old, new) of ``edits`` replaced once.  Returns the path a
+    configuration file names."""
+    from bench import weights
+    text = "\n\n".join([(REPO / "bench" / "reference.py").read_text(),
+                         inspect.getsource(weights.kind_of), inspect.getsource(weights.leaf_plan)])
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    rel = f"bench/models/{name}.py"
+    (root / "bench" / "models").mkdir(parents=True, exist_ok=True)
+    (root / rel).write_text(text)
+    return rel
 
 
 def token_clock(monkeypatch, dt: float = 1e-3) -> None:

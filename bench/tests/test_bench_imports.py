@@ -1,14 +1,19 @@
 """No module whose top-level name is ``jax``, ``jaxlib``, ``flax`` or
-``repro`` is loaded by the harness, and the reference loads nothing of the
-program.  Each check runs in a fresh interpreter: the test process itself
-may hold JAX from other test files."""
+``repro`` is loaded by the harness, and the reference, and every model
+module that a configuration names, loads nothing of the program.  Each
+check runs in a fresh interpreter: the test process itself may hold JAX
+from other test files."""
 import json
 import subprocess
 import sys
 
+import pytest
+
 import bench_tiny
+from bench import spec
 
 REPO = bench_tiny.REPO
+PROGRAM = {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
 DRY_LOAD = """
 import json, sys, runpy, tempfile
@@ -40,7 +45,35 @@ def test_the_reference_loads_nothing_of_the_program():
     code = ("import json, sys\nsys.path.insert(0, sys.argv[1])\nimport bench.reference\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     mods = _modules(code)
-    assert not mods & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
+    assert not mods & PROGRAM
+
+
+LOAD_MODULE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from bench import spec
+mod = spec.load(sys.argv[2], "bench_model")
+assert callable(mod.logits) and callable(mod.leaf_plan)
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def _configured_modules():
+    bench = spec.benchmark(REPO)
+    return sorted({c["reference"] for c in (spec.config(bench, e["name"], REPO)
+                                            for e in bench["configs"]) if "reference" in c})
+
+
+@pytest.mark.parametrize("path", ["tiny copy"] + _configured_modules())
+def test_every_model_module_a_configuration_names_loads_nothing_of_the_program(path, tmp_path):
+    """The repository's configurations' modules, and a copy of the
+    reference as a test configuration names one."""
+    if path == "tiny copy":
+        path = tmp_path / bench_tiny.model_module(tmp_path, "tinycopy")
+    out = subprocess.run([sys.executable, "-c", LOAD_MODULE, str(REPO), str(REPO / path)],
+                         capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert not set(json.loads(out.stdout.strip().splitlines()[-1])) & PROGRAM
 
 
 def test_forbidden_modules_are_found_by_their_top_level_name(monkeypatch):

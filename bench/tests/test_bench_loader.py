@@ -1,6 +1,7 @@
-"""The benchmark is data: a new configuration, traffic mix and per-layer
-metric are new files and new entries, found by name, with no edit to a file
-that is there; and ``BENCHMARK.json`` holds what each cell needs."""
+"""The benchmark is data: a new configuration, traffic mix, per-layer
+metric, model module and check statistic are new files and new entries,
+found by name, with no edit to a file that is there; and
+``BENCHMARK.json`` holds what each cell needs."""
 import hashlib
 import json
 import math
@@ -9,7 +10,7 @@ import re
 import pytest
 
 import bench_tiny
-from bench import check, harness, spec, traffic
+from bench import harness, spec, traffic
 
 REPO = bench_tiny.REPO
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -55,6 +56,60 @@ def test_a_new_config_mix_and_metric_need_no_edit(tmp_path, monkeypatch):
     assert {p: d for p, d in after.items() if p in before} == before
 
 
+# the copy's weights: the embedding drawn at std 0.05 (the plan's 0.02)
+WIDER_EMBEDDING = ('(("embed", "embedding"), (vocab, d), "matrix", 0.02)',
+                   '(("embed", "embedding"), (vocab, d), "matrix", 0.05)')
+
+
+def _add_cell(root, name, model, check, reference):
+    cfg = {"name": name, "source": "test", "model": model, "check": check,
+           "reference": reference}
+    (root / "bench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "file": f"bench/configs/{name}.json"})
+    bench["workloads"].append({"name": f"{name}.aligned", "config": name,
+                               "traffic": "tiny-aligned", "chips": 1})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return f"{name}.aligned"
+
+
+def test_a_new_reference_and_statistic_need_no_edit(tmp_path, monkeypatch):
+    """A configuration naming its own model module (a copy of the
+    reference whose ``leaf_plan`` draws the embedding wider) and its own
+    statistic runs correct, with the weights that copy plans."""
+    bench_tiny.token_clock(monkeypatch)
+    root = bench_tiny.make_root(tmp_path)
+    before = _digests(root / "bench")
+    ref = bench_tiny.model_module(root, "tinywide", [WIDER_EMBEDDING])
+    (root / "bench" / "checks" / "tapped_share.py").write_text(
+        "def read(cmp):\n    return cmp['err'].size / max(cmp['gaps'].size, 1)\n")
+    cell = _add_cell(root, "tinywide", bench_tiny.MOE,
+                     {"served_not_argmax": 0, "logit_err_p75": 0.05, "tapped_share": 1.0},
+                     ref)
+    res, lines = harness.run_cell(cell, 41, 0.6, False, root=root, device="cpu")
+    assert res["correct"], lines
+    assert 0.5 <= res["check"]["tapped_share"]["value"] <= 1.0
+    sv = harness.serve_cell(cell, 41, 0.6, root=root, device="cpu")
+    assert sv.module.leaf_plan(bench_tiny.MOE)[0][3] == 0.05
+    assert 0.045 < sv.params["embed"]["embedding"].float().std() < 0.055
+    after = _digests(root / "bench")
+    assert {p: d for p, d in after.items() if p in before} == before
+
+
+def test_the_module_a_configuration_names_judges_it(tmp_path, monkeypatch):
+    """A copy of the reference with one deliberate change, its RoPE base
+    doubled, judges the cell that names it: the run is not correct."""
+    bench_tiny.token_clock(monkeypatch)
+    root = bench_tiny.make_root(tmp_path)
+    ref = bench_tiny.model_module(root, "tinyrope", [
+        ('model.get("rope_theta", 10000.0) ** (', '(2 * model.get("rope_theta", 10000.0)) ** (')])
+    cell = _add_cell(root, "tinyrope", bench_tiny.DENSE, bench_tiny.LIMITS["tiny"], ref)
+    res, lines = harness.run_cell(cell, 42, 0.6, False, root=root, device="cpu")
+    assert not res["correct"], lines
+    assert res["check"]["max_logit_gap"]["value"] > 0.15
+    assert res["check"]["served_not_argmax"]["value"] == 0
+
+
 def test_benchmark_json_holds_what_each_cell_needs():
     bench = spec.benchmark(REPO)
     assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
@@ -82,8 +137,10 @@ def test_benchmark_json_holds_what_each_cell_needs():
             assert eng["pool_blocks"] >= eng["slots"] * math.ceil(eng["max_len"] / eng["block"])
         assert spec.metrics(bench, c["name"], "per_layer")
         for name, lim in cfg["check"].items():
-            assert name in check.STATS
-            assert lim is not None and lim > 0
+            assert (REPO / "bench" / "checks" / f"{name}.py").exists()
+            assert lim is not None and lim >= 0
+        if "reference" in cfg:
+            assert (REPO / cfg["reference"]).exists() and cfg["reference"].startswith("bench/")
     for c in bench["configs"]:
         assert (REPO / c["file"]).exists() and c["file"].startswith("bench/")
 

@@ -230,9 +230,9 @@ def test_a_profiled_tiny_run_reads_the_host_clock_metrics(root, cell):
     with profile(activities=[ProfilerActivity.CPU]):    # a first start is slow
         pass
     prof = profile(activities=[ProfilerActivity.CPU])
-    _, cfg, mix, _, _, run, _, _ = harness.serve_cell(cell, 2 ** 31 + 5, 1.0, root=root,
-                                                      device="cpu", prof=prof)
-    m = harness.Measured(run, Trace.from_profiler(prof, run.window_s), cfg["model"], mix)
+    sv = harness.serve_cell(cell, 2 ** 31 + 5, 1.0, root=root, device="cpu", prof=prof)
+    run, mix = sv.run, sv.mix
+    m = harness.Measured(run, Trace.from_profiler(prof, run.window_s), sv.cfg["model"], mix)
     got = {n: _read(n, m) for n in READERS[:5]}
     assert got["idle_dispatch_share"] is None and got["idle_engine_share"] is None
     assert 0 < got["decode_dispatch_ms_p50"] <= got["decode_step_ms_p50"]

@@ -1,10 +1,13 @@
 """The served model's weights, made on the device from the run's seed.
 
-The tree has the port's parameter layout (``params["embed"]``,
-``params["layers"][i]``, ``params["final_norm"]``), with the dtypes the
-port serves in: every matrix in the served dtype (bf16), the norm scales
-and the MoE router in f32.  The same tensors go to the program and to the
-reference; neither side derives anything from the other's.
+The leaves are those of the configuration's ``leaf_plan``: its model
+module's (``spec.model_module``), or ``leaf_plan`` below for the attention
+layers of ``bench/reference.py``.  The tree has the port's parameter layout
+(``params["embed"]``, ``params["layers"][i]``, ``params["final_norm"]``),
+with the dtypes the port serves in: every matrix in the served dtype
+(bf16), the norm scales and the MoE router in f32.  The same tensors go to
+the program and to the reference; neither side derives anything from the
+other's.
 
 The draws are a few large calls of one ``torch.Generator`` on the device:
 one flat buffer of the served dtype holds every matrix and one f32 buffer
@@ -18,7 +21,7 @@ logits.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,10 +77,11 @@ def _fill(buf: torch.Tensor, gen: torch.Generator) -> None:
         flat[lo:lo + SLICE].normal_(generator=gen)
 
 
-def make(model: dict, seed: int, device) -> Dict:
+def make(model: dict, seed: int, device, plan: Optional[List] = None) -> Dict:
     """The parameter tree of ``model`` (a configuration file's ``model``
-    block) for ``seed``, on ``device``."""
-    plan = leaf_plan(model)
+    block) for ``seed``, on ``device``, with the leaves of ``plan``
+    (``leaf_plan(model)`` by default)."""
+    plan = leaf_plan(model) if plan is None else plan
     dtype = _DTYPES[model.get("dtype", "bfloat16")]
     sizes = {"matrix": 0, "vector": 0}
     offsets = []
