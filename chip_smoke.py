@@ -24,9 +24,11 @@ error:
                  then the end-aligned decode's rows read through the
                  kernel at the benchmark cells' shapes (ChatGLM3-6B: B 128
                  x L 5120 and B 64 x L 7168, Hkv 2, rep 16, hd 128, bf16,
-                 about 27% of each row live), timed beside the bytes
-                 bound, the plain route (``_sdpa`` over the whole rows)
-                 and ``scaled_dot_product_attention``;
+                 about 27% of each row live; Mellum2-12B-A2.5B's group-8
+                 build, Hkv 4, rep 8: B 64 x a ring of 1024 read up to
+                 min(position + 1, 1024) and B 64 x L 7168), timed beside
+                 the bytes bound, the plain route (``_sdpa`` over the
+                 whole rows) and ``scaled_dot_product_attention``;
                  matmul at 4096^3 in f32 (the TMA-fed FFMA tile) and f16
                  (the wgmma tile), both also ragged (1000 x 1032 x 520: TMA
                  zero fill, bounded stores) and with f16 output, and the
@@ -45,7 +47,8 @@ error:
                  flash attention at the fused prefill's shape (q (1, 24,
                  512, 128), k/v (1, 8, 512, 128), causal), a ragged causal
                  575, L = 8192 causal, Mixtral's window 4096 with 48/8
-                 heads and a head size of 64 at batch 2 (32/8 heads, 937
+                 heads, Mellum2's 7104-token prefill with 32/4 heads with
+                 its window 1024 and without, and a head size of 64 at batch 2 (32/8 heads, 937
                  queries on 1000 keys, window 256), in bf16 (the wgmma
                  kernel) and f32 (the CUDA-core one), and query rows with
                  no key (exactly 0);
@@ -180,6 +183,14 @@ the kernels' launch counts just before its run and reads them just after):
                  against ``forward``, both in f32 arithmetic on the served
                  bf16 weights (f32 cache), with the (token, layer) top-2
                  sets that differ between the two counted;
+  serve mellum2 aligned -- Mellum2-12B-A2.5B whole (28 layers, 24.3 GB;
+                 the benchmark's configuration file) through the end-aligned
+                 engine at the code cell's max_len 7168: 4 prompts of 1500
+                 tokens (past the 1024 window) and 4 of 600, 4 slots, bucket
+                 16: tensor-core flash launches = admissions x 28 (window
+                 1024 on 21 layers, none on 7), none of the CUDA-core kernel,
+                 paged launches = decode steps x 28 (the group-8 build over
+                 21 rings and 7 rows);
   serve moe paged -- Kimi-K2 at its published width (d 7168, 64/8 heads,
                  384 experts top-8 and a shared expert, expert d_ff 2048),
                  depth cut from 61 to 1 (39 GB), the paged-attention kernel
@@ -566,12 +577,16 @@ def phase_kernels() -> dict:
     return rec
 
 
-# the end-aligned decode's rows at the benchmark cells' decode shapes
-# (ChatGLM3-6B, 2 kv heads of 16 query heads, hd 128): (label, slots B,
-# max_len L); each row's length drawn exponential with a mean of 28% of L,
-# clipped to [1, L], as the cells' rows are 27-29% live
-ROWS_CASES = [("glm6b.conv", 128, 5120), ("glm6b.code", 64, 7168)]
-ROWS_HKV, ROWS_REP, ROWS_HD, ROWS_LIVE = 2, 16, 128, 0.28
+# the end-aligned decode's rows at the benchmark cells' decode shapes:
+# (label, slots B, slots a row L, Hkv, rep, max_len).  ChatGLM3-6B: 2 kv
+# heads of 16 query heads; Mellum2-12B-A2.5B: 4 of 32 (group 8), a ring of
+# its 1024 window on the window layers and rows of max_len on the full
+# ones.  Each row's position drawn exponential with a mean of 28% of
+# max_len, clipped to [1, max_len], as the cells' rows are 25-29% live; a
+# ring reads min(position + 1, L) slots (``layers.attention``'s ring decode)
+ROWS_CASES = [("glm6b.conv", 128, 5120, 2, 16, 5120), ("glm6b.code", 64, 7168, 2, 16, 7168),
+              ("mellum2 ring", 64, 1024, 4, 8, 7168), ("mellum2 full", 64, 7168, 4, 8, 7168)]
+ROWS_HD, ROWS_LIVE = 128, 0.28
 
 
 def phase_rows_kernel() -> None:
@@ -579,29 +594,37 @@ def phase_rows_kernel() -> None:
     Hkv, hd) read as an arena of B * L / 256 pages through the kernel
     (``layers._rows_decode``), held against ``paged_attention_ref`` on the
     same view and timed beside its bytes bound, the plain route the decode
-    took before (``_sdpa`` over every whole row, causal at each row's
-    position) and ``scaled_dot_product_attention`` over the rows with a
-    length mask."""
+    takes without the kernel (``_sdpa`` over every whole row: causal at
+    each row's position, or on a ring over its valid slots) and
+    ``scaled_dot_product_attention`` over the rows with a length mask."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import layers as L
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, b, lk in ROWS_CASES:
+    for label, b, lk, hkv, rep, max_len in ROWS_CASES:
         g = torch.Generator(device="cuda").manual_seed(5)
-        q = torch.randn((b, 1, ROWS_HKV, ROWS_REP, ROWS_HD), generator=g,
+        q = torch.randn((b, 1, hkv, rep, ROWS_HD), generator=g,
                         device="cuda").to(torch.bfloat16)
-        ck, cv = (torch.randn((b, lk, ROWS_HKV, ROWS_HD), generator=g, device="cuda")
+        ck, cv = (torch.randn((b, lk, hkv, ROWS_HD), generator=g, device="cuda")
                   .to(torch.bfloat16) for _ in range(2))
-        drawn = np.random.RandomState(5).exponential(ROWS_LIVE * lk, size=b)
-        lengths = torch.from_numpy(np.clip(drawn, 1, lk).astype(np.int32)).cuda()
+        drawn = np.random.RandomState(5).exponential(ROWS_LIVE * max_len, size=b)
+        ring = lk < max_len
+        lengths = torch.from_numpy(np.minimum(np.clip(drawn, 1, max_len), lk)
+                                   .astype(np.int32)).cuda()
         pos = (lengths - 1).long()
         blk = L.rows_block(lk)
-        arena = (b * lk // blk, blk, ROWS_HKV, ROWS_HD)
+        arena = (b * lk // blk, blk, hkv, ROWS_HD)
         table = L._rows_table(b, lk // blk, ck.device)
         before = pa.launches
         got = L._rows_decode(q, ck, cv, lengths)
         want = pa.paged_attention_ref(q[:, 0], ck.view(arena), cv.view(arena), table,
                                       lengths)[:, None]
-        plain = L._sdpa(q, ck, cv, causal=True, window=None, q_offset=pos)
+
+        def plain_route():
+            if ring:
+                return L._sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
+                               kv_len_valid=lengths)
+            return L._sdpa(q, ck, cv, causal=True, window=None, q_offset=pos)
+        plain = plain_route()
         torch.cuda.synchronize()
         tol = KERNEL_TOL[torch.bfloat16]
         err = (got.float() - want.float()).abs().max().item()
@@ -616,24 +639,23 @@ def phase_rows_kernel() -> None:
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                q.reshape(b, ROWS_HKV * ROWS_REP, 1, ROWS_HD), ck.transpose(1, 2),
+                q.reshape(b, hkv * rep, 1, ROWS_HD), ck.transpose(1, 2),
                 cv.transpose(1, 2), attn_mask=mask[:, None, None], enable_gqa=True)
         ms = device_ms([lambda: L._rows_decode(q, ck, cv, lengths)])
         split_ms, combine_ms = _paged_kernel_ms(
             [(q[:, 0].contiguous(), ck.view(arena), cv.view(arena), table, lengths)])
-        plain_ms = device_ms([lambda: L._sdpa(q, ck, cv, causal=True, window=None,
-                                              q_offset=pos)])
+        plain_ms = device_ms([plain_route])
         library_ms = device_ms([library])
         live = int(lengths.sum())
-        nbytes = 2 * live * ROWS_HKV * ROWS_HD * 2 + 2 * q.numel() * 2 + b * 4
-        bound_ms, by, _, _ = _bound(nbytes, 4 * live * ROWS_HKV * ROWS_REP * ROWS_HD,
+        nbytes = 2 * live * hkv * ROWS_HD * 2 + 2 * q.numel() * 2 + b * 4
+        bound_ms, by, _, _ = _bound(nbytes, 4 * live * hkv * rep * ROWS_HD,
                                     PEAK_OPS_S[torch.float32])
-        n_splits, pps = pa.split_plan(b, ROWS_HKV, lk // blk, n_sm)
+        n_splits, pps = pa.split_plan(b, hkv, lk // blk, n_sm)
         kern = ("split and combine kernels not seen by the profiler" if split_ms is None
                 else f"split kernel {split_ms * 1e3:.1f} us + combine kernel "
                      f"{combine_ms * 1e3:.1f} us (profiler)")
-        print(f"[kernels] rows decode {label} bf16 (B {b} x L {lk}, Hkv {ROWS_HKV}, rep "
-              f"{ROWS_REP}, hd {ROWS_HD}, block {blk}; S {n_splits} of {pps} pages; "
+        print(f"[kernels] rows decode {label} bf16 (B {b} x L {lk}{' ring' if ring else ''}, "
+              f"Hkv {hkv}, rep {rep}, hd {ROWS_HD}, block {blk}; S {n_splits} of {pps} pages; "
               f"{live} live positions, {live / (b * lk):.3f} of the rows): max|kernel-plain| "
               f"{err:.3e}, against _sdpa {err_plain:.3e} (atol=rtol={tol:g}); kernel "
               f"{ms * 1e3:.1f} us ({kern}), plain route (_sdpa over the whole rows) "
@@ -651,6 +673,10 @@ FLASH_CASES = [  # (label, B, Hq, Hkv, Lq, Lk, hd, causal, window)
     ("ragged causal", 1, 24, 8, PROMPT + GEN - 1, PROMPT + GEN - 1, 128, True, None),
     ("long causal", 1, 24, 8, 8192, 8192, 128, True, None),
     ("Mixtral window", 1, 48, 8, 8192, 8192, 128, True, 4096),
+    # Mellum2-12B-A2.5B's prefill (32/4 heads, group 8) of the code mix's
+    # longest prompt: its 1024 window on the window layers, none on the full
+    ("Mellum2 window", 1, 32, 4, 7104, 7104, 128, True, 1024),
+    ("Mellum2 full", 1, 32, 4, 7104, 7104, 128, True, None),
     # the D = 64 instantiation (Zamba2-1.2B's head size) with a batch of 2
     # (the 4-D TMA maps' batch dim), grouped heads, queries end-aligned to
     # longer keys, ragged lengths and a window
@@ -2400,6 +2426,35 @@ def phase_serve_moe_aligned() -> int:
     return counts["flash_wgmma"]
 
 
+MELLUM2_CONFIG, MELLUM2_MAX_LEN = "mellum2-12b-a2.5b", 7168   # the code cell's max_len
+MELLUM2_PROMPTS, MELLUM2_REQ = (1500, 600), 4                  # requests of each length
+
+
+def phase_serve_mellum2_aligned() -> None:
+    """Mellum2-12B-A2.5B whole through the end-aligned engine: window rings
+    of 1024 beside rows of ``max_len``, prompts past the window and inside
+    it; every admission one tensor-core flash launch a layer, every decode
+    step one split-KV launch a layer."""
+    import bench.harness
+    import bench.spec
+    from repro_torch.launch.scheduler import make_requests
+    model = bench.spec.config(bench.spec.benchmark(ROOT), MELLUM2_CONFIG, ROOT)["model"]
+    cfg = bench.harness.port_config(model)
+    params = _family_init(cfg, cfg.n_layers)
+    reqs = [dataclasses.replace(r, rid=r.rid + i * MELLUM2_REQ, arrival=r.arrival + i)
+            for i, n in enumerate(MELLUM2_PROMPTS)
+            for r in make_requests(MELLUM2_REQ, n, GEN, cfg.vocab, stagger=STAGGER, seed=7 + i)]
+    out, counts = _serve_family("serve mellum2 aligned", cfg, params, reqs, 16, slots=SLOTS,
+                                max_len=MELLUM2_MAX_LEN, bucket=BUCKET)
+    want = {"flash_wgmma": len(reqs) * cfg.n_layers, "flash_simt": 0,
+            "paged": out["decode_steps"] * cfg.n_layers}
+    if counts != want or out["prefills"] != len(reqs) or not want["paged"]:
+        fail(f"serve mellum2 aligned: launches {counts}, prefills {out['prefills']}; want "
+             f"{want} ({len(reqs)} admissions x {cfg.n_layers} layers, decode steps x "
+             f"{cfg.n_layers} layers)")
+    del params
+
+
 def phase_serve_moe_paged() -> int:
     """Kimi-K2 (depth 1: 384 experts top-8 and a shared expert, 64/8 heads)
     through the paged engine: the paged-attention kernel at rep 8, once a
@@ -3649,6 +3704,7 @@ def main() -> None:
     _timed("dry run", phase_dry_run, cfg, tp_figures, sp_runs)
     _timed("train layouts", phase_train_layouts, link)
     _timed("serve moe aligned", phase_serve_moe_aligned)
+    _timed("serve mellum2 aligned", phase_serve_mellum2_aligned)
     _timed("serve moe paged", phase_serve_moe_paged)
     for arch, (tag, _, _) in RECURRENT_ARCHS.items():
         _timed(f"serve {tag}", phase_serve_recurrent, arch)

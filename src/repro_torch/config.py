@@ -7,10 +7,19 @@ config, so one arch reads the same in both; dtype names stay strings and
 (input shapes), ``ParallelConfig`` (layout and numerics of a train step) and
 ``TrainConfig`` (optimizer, schedule, checkpoints) are the reference's, field
 for field and default for default.
+
+Two fields are the port's own, both None for every arch the reference
+names: ``layer_windows``, an attention window a layer (tiled over the
+layers as ``block_pattern`` is; None is full attention), where
+``window`` is one window for every layer; and ``yarn``, the YaRN RoPE of
+the full-attention layers.  ``layer_config(i)`` is the config that layer
+``i`` runs under: its own window as ``window`` and, on a full layer, the
+YaRN RoPE.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Literal, Optional, Tuple
 
@@ -35,6 +44,21 @@ class MoEConfig:
     n_shared_experts: int = 0      # dense experts always active (Kimi-style)
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's rescaled RoPE (HF ``rope_type: yarn``): a rotary pair that
+    turns fewer than ``beta_slow`` times over the
+    ``original_max_position_embeddings`` positions has its frequency
+    divided by ``factor``, one that turns more than ``beta_fast`` times
+    keeps it, and the pairs between blend the two on a linear ramp; cos and
+    sin are scaled by ``attention_factor`` (``layers.yarn_inv_freq``)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    attention_factor: float
 
 
 @dataclass(frozen=True)
@@ -74,6 +98,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0               # chatglm 2d-RoPE = 0.5
     window: Optional[int] = None             # sliding-window attention
+    # a window a layer, tiled like block_pattern (None: full attention)
+    layer_windows: Optional[Tuple[Optional[int], ...]] = None
+    yarn: Optional[YarnConfig] = None        # RoPE of the full-attention layers
     qk_norm: bool = False                    # chameleon
     parallel_block: bool = False             # command-r style attn ∥ mlp
     # norms / act
@@ -92,6 +119,33 @@ class ModelConfig:
     param_dtype: str = "float32"             # master params
     sub_quadratic: bool = False
     notes: str = ""
+
+    def __post_init__(self):
+        # a configuration file gives lists and a dict: kept as a tuple and a
+        # YarnConfig, so that the frozen config stays hashable
+        if self.layer_windows is not None:
+            if self.window is not None:
+                raise ValueError(f"{self.name}: set window or layer_windows, not both")
+            object.__setattr__(self, "layer_windows", tuple(self.layer_windows))
+        if isinstance(self.yarn, dict):
+            object.__setattr__(self, "yarn", YarnConfig(**self.yarn))
+        if self.yarn is not None and self.window is not None:
+            raise ValueError(f"{self.name}: yarn is the RoPE of full-attention layers; a "
+                             f"model-wide window leaves none")
+
+    def layer_config(self, i: int) -> "ModelConfig":
+        """The config layer ``i`` runs under: this one, or with per-layer
+        windows the layer's window as ``window`` and ``yarn`` on a full
+        layer only."""
+        if self.layer_windows is None:
+            return self
+        return self._layer_configs[i % len(self.layer_windows)]
+
+    @functools.cached_property
+    def _layer_configs(self) -> Tuple["ModelConfig", ...]:
+        return tuple(self.replace(layer_windows=None, window=w,
+                                  yarn=self.yarn if w is None else None)
+                     for w in self.layer_windows)
 
     @property
     def hd(self) -> int:

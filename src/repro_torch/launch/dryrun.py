@@ -276,6 +276,9 @@ def prepare_cell(arch: str, shape, mesh: AbstractMesh, pcfg=None, cfg_override=N
     ``tcfg`` (the train step's) to ``TrainConfig()``."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = cfg_override or _cell_cfg(arch, shape.kind)
+    if cfg.layer_windows is not None:
+        raise NotImplementedError(f"{cfg.name}: the dry run has no cells for per-layer "
+                                  f"attention windows (layer_windows)")
     if hasattr(pcfg, "to_pcfg"):          # a first-class ParallelPlan
         pcfg = pcfg.to_pcfg()
     pcfg = pcfg or default_pcfg(arch, shape.kind, multi_pod="pod" in mesh.axis_names)

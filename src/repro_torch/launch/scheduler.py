@@ -18,7 +18,8 @@ Two engines (``paged=`` selects one):
   | engine             | cache layout            | admission (prefill)      | request length limit        |
   |--------------------|-------------------------|--------------------------|-----------------------------|
   | end-aligned (dflt) | per-slot (max_len) row  | ONE fused cache-writing  | prompt+gen <= max_len per   |
-  |                    |                         | forward, bucketed padded | slot (<= window for SWA)    |
+  |                    | (a ring at a layer's    | forward, bucketed padded | slot (<= a model-wide SWA   |
+  |                    | window: SWA)            |                          | window)                     |
   | paged              | shared page arena +     | CHUNKED: fixed (1,chunk) | prompt+gen <= pool capacity |
   |                    | per-request block table | slices interleaved with  | (and the block-table width  |
   |                    | (serving/kvcache.py)    | decode ticks             | cap max_len)                |
@@ -56,7 +57,9 @@ recurrent admission up to its first token on the host and its row insert,
 the prefill or chunk step's call; ``step.decode`` the decode step from its
 inputs' copy to its tokens on the host (rows); ``sync`` each wait for the
 device (``site``: ``h2d``, ``first_token``, ``decode``, ``agree``,
-``run_end``; ``models/`` adds ``paged_write`` and the MoE's).
+``run_end``; ``models/`` adds ``paged_write`` and the MoE's).  The MoE
+layer adds ``moe.ffn`` (rows: tokens) and, inside it, ``moe.experts``
+around the grouped products (experts given a row, rows: assignments).
 """
 from __future__ import annotations
 
@@ -155,6 +158,8 @@ class Scheduler:
         if temperature < 0.0 or not 0.0 < top_p <= 1.0:
             raise ValueError(f"need temperature >= 0 and 0 < top_p <= 1, "
                              f"got {temperature}/{top_p}")
+        # a model-wide window makes every layer's row a ring of it; with
+        # per-layer windows (layer_windows) the full layers hold max_len
         if not paged and cfg.window is not None and max_len > cfg.window:
             raise NotImplementedError(
                 f"slots are end-aligned: max_len {max_len} must fit the "
@@ -177,7 +182,8 @@ class Scheduler:
             if not T.supports_paged(cfg):
                 raise NotImplementedError(
                     f"paged serving needs a pure-attention no-SWA pattern; "
-                    f"got {cfg.block_pattern} (window={cfg.window})")
+                    f"got {cfg.block_pattern} (window={cfg.window}, "
+                    f"layer_windows={cfg.layer_windows})")
             if block < 1 or chunk < 1:
                 raise ValueError(f"need block >= 1 and chunk >= 1, got "
                                  f"{block}/{chunk}")

@@ -96,7 +96,11 @@ def cache_specs(cfg: ModelConfig, ctx: MeshCtx, cache: Tree) -> Tree:
     ``meta`` tensors, or anything with a ``shape``), mirroring ``cache``:
     a (K, V) pair of an attention layer (or of Zamba2's ``shared_attn``,
     or of an enc-dec decoder layer) splits its length over ``model`` where
-    ``model`` divides it, else stays whole (JAX's ``_div``)."""
+    ``model`` divides it, else stays whole (JAX's ``_div``).  A config with
+    per-layer windows (``layer_windows``) has no layout on a mesh."""
+    if cfg.layer_windows is not None:
+        raise NotImplementedError(f"{cfg.name}: per-layer attention windows (layer_windows) "
+                                  f"have no cache layout on a mesh")
     pairs = leaves_with_path(cache)
     return tree_unflatten(cache, [_leaf_spec({str(k) for k in path}, tuple(leaf.shape), ctx)
                                   for path, leaf in pairs])

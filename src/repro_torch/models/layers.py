@@ -211,8 +211,36 @@ def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # RoPE (standard + fractional "2d" chatglm variant)
 # ---------------------------------------------------------------------------
+def yarn_inv_freq(theta: float, rot: int, yarn) -> list:
+    """YaRN's frequencies of a rotary part of ``rot`` dims at base
+    ``theta`` (HF's ``_compute_yarn_parameters``), in float64: dim pair i
+    keeps ``theta^(-2i/rot)`` below the ramp, takes it over ``factor``
+    above it, and blends the two linearly over [lo, hi], where lo and hi
+    are the pairs that turn ``beta_fast`` and ``beta_slow`` times over the
+    original context (floored and ceiled, clipped to the dims)."""
+    def turns(n):
+        return rot * math.log(yarn.original_max_position_embeddings / (n * 2 * math.pi)) / (
+            2 * math.log(theta))
+    lo = max(math.floor(turns(yarn.beta_fast)), 0)
+    hi = min(math.ceil(turns(yarn.beta_slow)), rot - 1)
+    out = []
+    for i in range(rot // 2):
+        base = theta ** (-2 * i / rot)
+        keep = 1.0 - min(max((i - lo) / (hi - lo), 0.0), 1.0)
+        out.append(base / yarn.factor * (1.0 - keep) + base * keep)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _yarn_table(theta: float, rot: int, yarn, device: torch.device) -> torch.Tensor:
+    """``yarn_inv_freq`` as an f32 tensor on ``device``, made once."""
+    return torch.tensor(yarn_inv_freq(theta, rot, yarn), dtype=torch.float32, device=device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: (S,) or (B, S) absolute positions."""
+    """x: (..., S, H, hd); positions: (S,) or (B, S) absolute positions.
+    With ``cfg.yarn`` the frequencies are YaRN's and cos and sin are scaled
+    by its attention factor (so q.k by its square)."""
     hd = x.shape[-1]
     rot = int(hd * cfg.rope_fraction)
     rot -= rot % 2
@@ -220,10 +248,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Te
         return x
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     half = rot // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = cfg.rope_theta ** exps                              # f32, as in JAX
+    if cfg.yarn is None:
+        exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+        freqs = cfg.rope_theta ** exps                          # f32, as in JAX
+    else:
+        freqs = _yarn_table(cfg.rope_theta, rot, cfg.yarn, x.device)
     ang = positions.float()[..., None] * freqs                  # (..., S, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    if cfg.yarn is not None:
+        cos, sin = cos * cfg.yarn.attention_factor, sin * cfg.yarn.attention_factor
     x1, x2 = x_rot[..., :half], x_rot[..., half:]
     x_rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([x_rot.to(x.dtype), x_pass], dim=-1)
@@ -366,6 +399,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
               block_tables: Optional[torch.Tensor] = None,
               ctx=None,
               xattn_kv: Optional[torch.Tensor] = None,
+              length=None,
               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Self- (or cross-) attention.
 
@@ -375,7 +409,8 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     ``(B, L, Hkv, hd)``.  Decode writes each row's token at its own (B,)
     ``cache_pos`` (a position past the row drops); a fused prefill writes at
     scalar ``cache_pos`` (an SWA prompt longer than the ring keeps its last L
-    tokens at their ring slots); then q attends end-aligned to the cache.
+    tokens at their ring slots: the last L of its true ``length``, (B,),
+    where one is given); then q attends end-aligned to the cache.
     Paged decode/prefill (``cache`` and ``block_tables`` given): ``cache`` is
     the (K, V) pair of page arenas ``(n_blocks, block, Hkv, hd)``; each
     request writes and reads through its block-table row.  Decode is a (B,)
@@ -422,7 +457,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
             _write_rows(ck, cache_pos, k[:, 0])
             _write_rows(cv, cache_pos, v[:, 0])
         else:
-            _write_prefill(ck, cv, k, v, cache_pos, 0)
+            _write_prefill(ck, cv, k, v, cache_pos, 0, n_real=length)
         new_cache = (ck, cv)
         # a decode of one token a row reads slots [0, cache_pos + 1) (the
         # causal mask; a parked row all of them), or on a ring its first
@@ -484,21 +519,26 @@ def _qk_rope(p: Params, q, k, positions, cfg: ModelConfig, *, rope_on: bool,
 
 
 def _write_prefill(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   cache_pos, lo: int, length: Optional[int] = None) -> None:
+                   cache_pos, lo: int, length: Optional[int] = None, n_real=None) -> None:
     """A fused prefill's K/V (B, S, ..) into the cache slots ``[lo, lo +
     ck.shape[1])`` of a row of ``length`` slots (default: all of them
     here): at ``cache_pos`` on, with JAX's ``dynamic_update_slice`` clamp
     of the start so the update fits the row; a prompt longer than the row
     (an SWA ring) keeps its last ``length`` tokens at their ring slots
-    (token j -> slot j % length).  Slots outside the block are another
-    rank's."""
+    (token j -> slot j % length), of each row's first ``n_real`` (B,) tokens
+    (default: all S; a right-padded bucket passes its true lengths, and
+    slots past a shorter prompt get its token 0, behind the decode's
+    length).  Slots outside the block are another rank's."""
     s, nl = k.shape[1], ck.shape[1]
     lk = length if length is not None else nl
     if s > lk:
         g = torch.arange(lo, lo + nl, device=k.device)
-        tok = s - lk + (g - (s - lk)) % lk          # the token whose ring slot is g
-        ck[:] = k[:, tok].to(ck.dtype)
-        cv[:] = v[:, tok].to(cv.dtype)
+        n = s if n_real is None else n_real
+        first = torch.as_tensor(n, device=k.device).long().expand(k.shape[0])[:, None] - lk
+        tok = (first + (g - first) % lk).clamp(min=0)   # (B, nl): the token at ring slot g
+        rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        ck[:] = k[rows, tok].to(ck.dtype)
+        cv[:] = v[rows, tok].to(cv.dtype)
         return
     start = min(max(int(cache_pos), 0), lk - s)
     a, e = max(lo, start), min(lo + nl, start + s)

@@ -153,12 +153,17 @@ def _grouped(xs: torch.Tensor, w: torch.Tensor, sizes: List[int], dtype) -> torc
 
 
 def _expert_ffn(xs, sizes, w_gate, w_up, w_down, dtype) -> torch.Tensor:
-    """Grouped SwiGLU over rows sorted by expert."""
-    xs = xs.to(dtype)
-    g = _grouped(xs, w_gate, sizes, dtype)
-    u = _grouped(xs, w_up, sizes, dtype)
-    h = F.silu(g.float()).to(dtype) * u
-    return _grouped(h, w_down, sizes, dtype)
+    """Grouped SwiGLU over rows sorted by expert, in a ``moe.experts`` span
+    (``experts``: those given a row; ``rows``: the assignments, from the
+    host's ``sizes``)."""
+    with trace.span("moe.experts") as sp:
+        if sp is not trace._OFF:            # counted only while a profile records
+            sp.set(experts=sum(n > 0 for n in sizes), rows=sum(sizes))
+        xs = xs.to(dtype)
+        g = _grouped(xs, w_gate, sizes, dtype)
+        u = _grouped(xs, w_up, sizes, dtype)
+        h = F.silu(g.float()).to(dtype) * u
+        return _grouped(h, w_down, sizes, dtype)
 
 
 def _sizes(eid: torch.Tensor, n: int) -> List[int]:
@@ -308,7 +313,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Optional[MeshCtx]
     dtype, the router's probabilities (T, E) for the aux loss; under a ctx,
     this rank's rows).  The layout follows the ctx: a2a with
     ``ctx.moe_a2a_ep`` (and a ``data`` batch axis), else EP when ``model``
-    divides the experts, else TP."""
+    divides the experts, else TP.  The layer is a ``moe.ffn`` span
+    (``rows``: the B * S tokens)."""
+    with trace.span("moe.ffn", rows=x.shape[0] * x.shape[1]):
+        return _moe_ffn(p, x, cfg, ctx)
+
+
+def _moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: Optional[MeshCtx]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     from repro_torch.models.layers import _dtype
     e = cfg.moe
     dt = _dtype(cfg)

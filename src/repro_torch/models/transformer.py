@@ -87,13 +87,16 @@ def _block_init(kind: str, gen, cfg: ModelConfig, dtype) -> Params:
 
 
 def _block_apply(kind: str, p: Params, h: torch.Tensor, positions, cfg: ModelConfig,
-                 cache, cache_pos, block_tables, shared_attn: Optional[Params], ctx=None):
-    """Returns (h, new cache entry, aux loss contribution).  Under a
-    sequence-sharded residual (``layers.seq_sharded``) ``h`` is the rank's
-    sequence rows: the norms run on them, attention and the dense MLP take
-    them; a block kind with no sequence-sharded form (MoE, Mamba2, mLSTM,
-    sLSTM) gathers the whole sequence on entry, runs as without
-    ``seq_parallel`` (``whole``) and keeps the rank's rows on exit."""
+                 cache, cache_pos, block_tables, shared_attn: Optional[Params], ctx=None,
+                 length=None):
+    """Returns (h, new cache entry, aux loss contribution).  ``cfg`` is the
+    layer's (``ModelConfig.layer_config``); ``length``: a fused prefill's
+    true prompt lengths (``prefill``).  Under a sequence-sharded residual
+    (``layers.seq_sharded``) ``h`` is the rank's sequence rows: the norms
+    run on them, attention and the dense MLP take them; a block kind with
+    no sequence-sharded form (MoE, Mamba2, mLSTM, sLSTM) gathers the whole
+    sequence on entry, runs as without ``seq_parallel`` (``whole``) and
+    keeps the rank's rows on exit."""
     aux = None
     whole = L.replicated_seq(ctx)
 
@@ -109,7 +112,8 @@ def _block_apply(kind: str, p: Params, h: torch.Tensor, positions, cfg: ModelCon
     if kind in ATTN_KINDS:
         x1 = norm(p["ln1"], h)
         attn_out, new = L.attention(p["attn"], x1, positions, cfg, cache=cache,
-                                    cache_pos=cache_pos, block_tables=block_tables, ctx=ctx)
+                                    cache_pos=cache_pos, block_tables=block_tables, ctx=ctx,
+                                    length=length)
         if cfg.parallel_block:             # command-r style: attn || ffn on one input
             x2 = x1
         else:
@@ -267,8 +271,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for i, p in enumerate(params["layers"]):
         kind = kind_of(cfg, i)
 
-        def layer(h, p, kind=kind):
-            h, _, a = _block_apply(kind, p, h, positions, cfg, None, None, None, shared_attn,
+        def layer(h, p, kind=kind, lcfg=cfg.layer_config(i)):
+            h, _, a = _block_apply(kind, p, h, positions, lcfg, None, None, None, shared_attn,
                                    ctx)
             h = h if ctx is None else _constrain(h, ctx)
             return h, (a if a is not None else torch.zeros((), device=h.device))
@@ -297,7 +301,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
                dtype: torch.dtype = torch.bfloat16, ctx=None) -> Cache:
     """One entry per layer: a (K, V) pair of ``(batch, kv_len, kv_heads,
     hd)`` zero rows for an attention kind (``kv_len = min(max_len,
-    window)`` for SWA: a ring), in ``dtype`` (bf16 whatever the model dtype,
+    window)`` for SWA, with the layer's own window where they are per
+    layer: a ring), in ``dtype`` (bf16 whatever the model dtype,
     as in the JAX package); the recurrent kinds' state: the Mamba2 conv
     window in ``dtype`` and its SSM state in f32 (plus the shared
     attention's K/V at ``mamba2_attn``), the mLSTM state and the sLSTM's c,
@@ -306,16 +311,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
     if ctx is not None:
         return local_cache(cfg, init_cache(cfg, batch, max_len, device="meta", dtype=dtype),
                            ctx, device)
-    kv_len = min(max_len, cfg.window) if cfg.window else max_len
-    shp = (batch, kv_len, cfg.n_kv_heads, cfg.hd)
-
-    def kv():
+    def kv(window=cfg.window):
+        shp = (batch, min(max_len, window) if window else max_len, cfg.n_kv_heads, cfg.hd)
         return (torch.zeros(shp, dtype=dtype, device=device),
                 torch.zeros(shp, dtype=dtype, device=device))
 
-    def one(kind):
+    def one(kind, i):
         if kind in ATTN_KINDS:
-            return kv()
+            return kv(cfg.layer_config(i).window)
         if kind in ("mamba2", "mamba2_attn"):
             c = {"mamba": S.mamba2_init_cache(batch, cfg, device, dtype)}
             if kind == "mamba2_attn":
@@ -327,7 +330,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
             return {"slstm": X.slstm_init_cache(batch, cfg, device)}
         raise ValueError(f"unknown block kind {kind!r}")
 
-    return [one(kind_of(cfg, i)) for i in range(cfg.n_layers)]
+    return [one(kind_of(cfg, i), i) for i in range(cfg.n_layers)]
 
 
 def local_cache(cfg: ModelConfig, like: Cache, ctx, device) -> Cache:
@@ -352,12 +355,16 @@ def supports_fused_prefill(cfg: ModelConfig) -> bool:
 
 
 def _layers(params: Params, h: torch.Tensor, positions, cfg: ModelConfig, cache: Cache,
-            cache_pos, block_tables, ctx=None) -> torch.Tensor:
-    """Every layer over ``h`` with its cache entry, replaced in ``cache``."""
+            cache_pos, block_tables, ctx=None, length=None) -> torch.Tensor:
+    """Every layer over ``h`` with its cache entry, replaced in ``cache``,
+    under its own config (``ModelConfig.layer_config``); ``cache_pos`` is
+    one for every layer, or a list of one a layer."""
     shared_attn = params.get("shared_attn")
+    per_layer = isinstance(cache_pos, list)
     for i, p in enumerate(params["layers"]):
-        h, cache[i], _ = _block_apply(kind_of(cfg, i), p, h, positions, cfg, cache[i],
-                                      cache_pos, block_tables, shared_attn, ctx)
+        h, cache[i], _ = _block_apply(kind_of(cfg, i), p, h, positions, cfg.layer_config(i),
+                                      cache[i], cache_pos[i] if per_layer else cache_pos,
+                                      block_tables, shared_attn, ctx, length)
     return h
 
 
@@ -369,7 +376,10 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
     attends through the flash kernel; a recurrent layer's state is the
     chunk scan's (the whole S must be real tokens).  ``length``: optional
     (B,) true prompt lengths of a right-padded batch (pad entries are
-    causally invisible; attention patterns only).  Returns (last-position
+    causally invisible; attention patterns only).  Per-layer windows
+    (``cfg.layer_windows``): a ring shorter than the bucket keeps the last
+    ``window`` real tokens of each row (``layers._write_prefill``); a
+    model-wide window refuses such a bucket.  Returns (last-position
     logits (B, V) f32, cache).  ``ctx``: the rank's rows and cache blocks
     in, its logits block (B/dp, V/tp) out."""
     b, s = tokens.shape
@@ -381,14 +391,16 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
                 f"{cfg.block_pattern} carries recurrent state")
         from repro_torch.launch.specs import kv_slots
         ring = cache[0][0].shape[1] if ctx is None else kv_slots(cache[0][0], ctx)[1]
-        if s > ring:
+        if cfg.layer_windows is None and s > ring:
             # the trailing-window ring write would keep pad K/V and drop
-            # real tokens; unpadded (length=None) overflow is fine
+            # real tokens; unpadded (length=None) overflow is fine.  Per-layer
+            # rings write from the true lengths instead
             raise NotImplementedError(
                 f"right-padded prefill bucket {s} exceeds the cache ring "
                 f"{ring}; cap the pad bucket at the attention window")
     h = L.embed(params["embed"], tokens, cfg, ctx)
-    h = _layers(params, h, torch.arange(s, device=tokens.device), cfg, cache, 0, None, ctx)
+    h = _layers(params, h, torch.arange(s, device=tokens.device), cfg, cache, 0, None, ctx,
+                length)
     h = L.apply_norm(params["final_norm"], h, cfg)
     if length is None:
         h_last = h[:, -1]
@@ -401,8 +413,9 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Cache, cfg: ModelConfig
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when the paged KV-cache engine can serve this config: pure
     attention patterns (pages hold K/V lines; recurrent state has no
-    per-position layout to page) with full (no sliding-window) attention."""
-    return (not cfg.enc_dec and cfg.window is None
+    per-position layout to page) with full (no sliding-window) attention in
+    every layer (no ``layer_windows``)."""
+    return (not cfg.enc_dec and cfg.window is None and cfg.layer_windows is None
             and all(k in ATTN_KINDS for k in cfg.block_pattern))
 
 
@@ -415,7 +428,7 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block: int, *,
     if not supports_paged(cfg):
         raise NotImplementedError(
             f"paged KV cache needs a pure-attention, no-SWA pattern; got "
-            f"{cfg.block_pattern} (window={cfg.window})")
+            f"{cfg.block_pattern} (window={cfg.window}, layer_windows={cfg.layer_windows})")
     shp = (n_blocks, block, cfg.n_kv_heads, cfg.hd)
     return [(torch.zeros(shp, dtype=dtype, device=device),
              torch.zeros(shp, dtype=dtype, device=device))
@@ -447,7 +460,8 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     """One decode step.  token (B,) int; pos: a scalar absolute position,
     or a (B,) tensor of per-row positions (continuous-batching slots advance
     independently).  Without ``block_tables`` the cache is the end-aligned
-    rows (SWA: a ring, written at ``pos % window``) and the recurrent
+    rows (SWA: a ring, written at ``pos % window``, each layer at its own
+    window where they are per layer) and the recurrent
     state; ``block_tables`` (B, P): the paged cache, each row addressing
     its own page chain.  Returns (logits (B, V) f32, cache).  ``ctx``: as
     ``prefill``'s (the rank's rows of ``token``, ``pos`` and
@@ -456,7 +470,12 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     ctx = L.replicated_seq(ctx)
     h = L.embed(params["embed"], token[:, None], cfg, ctx)     # (B, 1, d)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    cache_pos = pos if cfg.window is None else pos % cfg.window
+    if cfg.layer_windows is None:
+        cache_pos = pos if cfg.window is None else pos % cfg.window
+    else:
+        windows = [cfg.layer_config(i).window for i in range(cfg.n_layers)]
+        ring = {w: pos % w for w in set(windows) if w is not None}
+        cache_pos = [pos if w is None else ring[w] for w in windows]
     h = _layers(params, h, positions, cfg, cache, cache_pos, block_tables, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
     return L.logits(params["embed"], h, cfg, ctx)[:, 0], cache
