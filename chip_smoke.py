@@ -52,6 +52,21 @@ error:
                  queries on 1000 keys, window 256), in bf16 (the wgmma
                  kernel) and f32 (the CUDA-core one), and query rows with
                  no key (exactly 0);
+                 the grouped expert kernels (gate+up, down, and down's
+                 weighted scatter) at Mellum2-12B-A2.5B's decode (64 rows,
+                 top-8 of 64) and 1500-token prefill, Mixtral-8x22B's
+                 prefill (1500, top-2 of 8) and Kimi-K2's decode (64, top-8
+                 of 384), then with padding rows past the groups at
+                 Mellum2's and Mixtral's decode (every row tile taken),
+                 against their plain versions (max error over max |plain|
+                 within 2e-2, rows past the groups exactly 0), timed beside
+                 their bound, the plain version and the per-expert
+                 torch.matmul loop, which they must not trail at Mixtral's
+                 prefill and Kimi-K2's decode; then one Mellum2 MoE layer
+                 call at the decode and prefill shapes under
+                 torch.cuda.set_sync_debug_mode("error"): no sync, 2
+                 launches, within 2e-2 of the same call on the loop route;
+                 and a bf16 call with a transposed expert weight raises;
   4. serve    -- full-width Llama-3.2-3B in bf16, random weights from a
                  seeded generator, through ``Scheduler(paged=True)``: 8
                  requests of 512 prompt and 64 generated tokens, 4 slots,
@@ -178,7 +193,8 @@ the kernels' launch counts just before its run and reads them just after):
                  282 GB), through ``Scheduler(paged=False)`` on the llama
                  phases' mix: tensor-core flash launches = non-empty
                  admissions x 4, paged launches = decode steps x 4 (the
-                 decode over the rows); then one served request teacher-forced
+                 decode over the rows), grouped expert launches = 2 x 4 x
+                 model calls; then one served request teacher-forced
                  through a fused prefill and end-aligned decode steps
                  against ``forward``, both in f32 arithmetic on the served
                  bf16 weights (f32 cache), with the (token, layer) top-2
@@ -190,14 +206,17 @@ the kernels' launch counts just before its run and reads them just after):
                  16: tensor-core flash launches = admissions x 28 (window
                  1024 on 21 layers, none on 7), none of the CUDA-core kernel,
                  paged launches = decode steps x 28 (the group-8 build over
-                 21 rings and 7 rows);
+                 21 rings and 7 rows), grouped expert launches = 2 x 28 x
+                 model calls (the per-expert loop never runs);
   serve moe paged -- Kimi-K2 at its published width (d 7168, 64/8 heads,
                  384 experts top-8 and a shared expert, expert d_ff 2048),
                  depth cut from 61 to 1 (39 GB), the paged-attention kernel
                  checked at its decode shape (rep 8), then 4 requests of 256
                  + 32 tokens through ``Scheduler(paged=True)`` (4 slots,
-                 block 16, chunk 256): paged launches = decode steps; the
-                 f32 oracle through chunked prefill and paged decode;
+                 block 16, chunk 256): paged launches = decode steps,
+                 grouped expert launches = 2 x model calls; the f32 oracle
+                 through chunked prefill and paged decode (its f32
+                 arithmetic takes the per-expert loop);
   serve hybrid, serve xlstm -- Zamba2-1.2B and xLSTM-1.3B at full width,
                  depth cut to 19 of 38 and 24 of 48 layers (whole periods of
                  their block patterns), 4 requests of 128 + 32 tokens on 2 slots through
@@ -775,6 +794,175 @@ def phase_flash_kernels() -> dict:
             fail(f"flash_attention {dtype}: rows with no key are not all 0, or the rest "
                  f"differ from the plain version ({err:.3e})")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert products at the serving path's shapes: (label, tokens
+# T, experts E, top-k, d, ff, rows past offsets[E]).  Mellum2-12B-A2.5B's
+# decode (64 slots: 512 rows, row tile 16, as the cell decodes) and a
+# 1500-token prefill, Mixtral-8x22B's 1500-token prefill, Kimi-K2's decode;
+# then padding past the groups (the token-routing layout's), which must come
+# out exactly 0, on Mellum2's and Mixtral-8x22B's decode.  Between them the
+# cases take every row tile the kernels are built for
+GROUPED_CASES = [
+    ("mellum2 decode", 64, 64, 8, 2304, 896, 0),
+    ("mellum2 prefill", 1500, 64, 8, 2304, 896, 0),
+    ("mixtral prefill", 1500, 8, 2, 6144, 16384, 0),
+    ("kimi decode", 64, 384, 8, 7168, 2048, 3),
+    ("mellum2 decode padded", 64, 64, 8, 2304, 896, 5),
+    ("mixtral decode padded", 64, 8, 2, 6144, 16384, 3),
+]
+GROUPED_REL_TOL = 2e-2      # max |kernel - plain| over max |plain|, bf16 outputs
+# where the kernels must not trail the per-expert torch.matmul loop: the
+# shapes with many rows an expert, bound by operations or by scattered bytes
+GROUPED_NOT_SLOWER = ("mixtral prefill", "kimi decode")
+
+
+def _grouped_case(t, e, k, d, ff, pad, seed):
+    """Rows sorted by their top-k experts of random logits (``pad`` rows
+    past the groups), their offsets, bf16 expert matrices N(0, 1/fan-in)."""
+    from repro_torch.models import moe as M
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eid = torch.sort(M.top_k(torch.randn((t, e), generator=g, device="cuda"), k)[1]
+                     .reshape(-1), stable=True)[0]
+    eid = torch.cat([eid, torch.full((pad,), e, dtype=eid.dtype, device="cuda")])
+    xs = torch.randn((t * k + pad, d), generator=g, device="cuda", dtype=torch.bfloat16)
+    ws = [torch.randn((e, a, b), generator=g, device="cuda", dtype=torch.bfloat16)
+          .mul_(a ** -0.5) for a, b in ((d, ff), (d, ff), (ff, d))]
+    return xs, M._offsets(eid, e), ws
+
+
+def _errs(got: torch.Tensor, want: torch.Tensor):
+    """max |got - want| and that over max |want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / want.float().abs().max().item()
+
+
+def phase_grouped_kernels() -> dict:
+    """Each grouped kernel against its plain version at GROUPED_CASES, then
+    timed from CUDA-graph replays beside its bound, the plain version and
+    the per-expert loop; then one Mellum2 MoE layer call at the decode and
+    prefill shapes under ``torch.cuda.set_sync_debug_mode("error")``: the
+    untraced layer never waits for the device, and launches the two
+    kernels."""
+    from repro_torch.kernels import grouped_matmul as gm
+    rec, slower, tiles = {}, [], set()
+    for i, (label, t, e, k, d, ff, pad) in enumerate(GROUPED_CASES):
+        xs, off, ws = _grouped_case(t, e, k, d, ff, pad, seed=10 + i)
+        off_host = off.cpu()
+        sizes = torch.diff(off_host).tolist()
+        rows, hit = xs.shape[0], sum(n > 0 for n in sizes)
+        before = gm.launches
+        h = gm.grouped_gate_up(xs, ws[0], ws[1], off)
+        y = gm.grouped_down(h, ws[2], off)
+        torch.cuda.synchronize()
+        if gm.launches - before != 2:
+            fail(f"grouped {label}: {gm.launches - before} launches for gate+up and down")
+        abs_h, err_h = _errs(h, gm.grouped_gate_up_ref(xs, ws[0], ws[1], off_host))
+        abs_y, err_y = _errs(y, gm.grouped_down_ref(h, ws[2], off_host))
+        # the scatter epilogue (the combine's weighted put): exactly the put
+        # of the bf16 rows, three slots no row lists left 0
+        slots = torch.randperm(rows + 3, device="cuda")[:rows]
+        scale = torch.rand(rows + 3, device="cuda")
+        scattered = torch.equal(gm.grouped_down(h, ws[2], off, slots, scale),
+                                gm.scatter(y, slots, scale))
+        loop = gm.ragged_swiglu(xs, *ws, sizes)
+        err_loop = _errs(y, loop)[1]
+        tiles.add(gm.row_tile(rows, e))
+        past = int((h[t * k:] != 0).sum() + (y[t * k:] != 0).sum())
+        print(f"[kernels] grouped {label}: rows {rows} ({pad} past the groups), {hit} of {e} "
+              f"experts given a row, d {d}, ff {ff}, row tile {gm.row_tile(rows, e)}; "
+              f"max|kernel - plain| / max|plain|: gate+up {err_h:.3e}, down {err_y:.3e} "
+              f"(bound {GROUPED_REL_TOL:g}); against the loop {err_loop:.3e}; nonzero past "
+              f"the groups {past}; scatter equal to the put {scattered}", flush=True)
+        if not (err_h <= GROUPED_REL_TOL and err_y <= GROUPED_REL_TOL) or past or \
+                not torch.isfinite(y).all() or not scattered:
+            fail(f"grouped {label}: the kernels differ from their plain versions "
+                 f"({err_h:.3e}, {err_y:.3e}), rows past the groups are not 0 ({past}) or "
+                 f"the scatter differs from the put")
+        del h, y, loop
+        slow = label.startswith("mixtral")
+        ms = device_ms([lambda: gm.grouped_down(gm.grouped_gate_up(xs, ws[0], ws[1], off),
+                                                ws[2], off)])
+        gate_up_ms = device_ms([lambda: gm.grouped_gate_up(xs, ws[0], ws[1], off)])
+        plain_ms = device_ms([lambda: gm.grouped_down_ref(
+            gm.grouped_gate_up_ref(xs, ws[0], ws[1], off_host), ws[2], off_host)],
+            replays=2 if slow else 10)
+        loop_ms = device_ms([lambda: gm.ragged_swiglu(xs, *ws, sizes)])
+        nbytes = (hit * 3 * d * ff + 2 * rows * d) * 2          # moe_experts_roofline's count
+        bound_ms, by, bytes_ms, ops_ms = _bound(nbytes, 6 * t * k * d * ff,
+                                                PEAK_OPS_S[torch.bfloat16])
+        rec[label] = dict(max_abs_err=max(abs_h, abs_y), max_rel_err=max(err_h, err_y), ms=ms,
+                          plain_ms=plain_ms, library_ms=loop_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"[kernels] grouped {label}: kernels {ms:.4f} ms (gate+up {gate_up_ms:.4f}, "
+              f"down {ms - gate_up_ms:.4f}), {100 * bound_ms / ms:.1f}% of the bound "
+              f"{bound_ms:.4f} ms = max({nbytes / 1e9:.3f} GB / 3.35 TB/s = {bytes_ms:.4f} ms, "
+              f"{6 * t * k * d * ff / 1e9:.1f} GFLOP / 989 TFLOP/s = {ops_ms:.4f} ms), by {by}; "
+              f"plain {plain_ms:.4f} ms; per-expert torch.matmul loop {loop_ms:.4f} ms "
+              f"({loop_ms / ms:.2f}x the kernels)", flush=True)
+        if label in GROUPED_NOT_SLOWER and ms > loop_ms:
+            slower.append(f"{label}: the kernels {ms:.4f} ms, the loop {loop_ms:.4f} ms")
+        del xs, off, ws
+        torch.cuda.empty_cache()
+    if tiles != set(gm._ROW_TILES):
+        fail(f"grouped: the cases took row tiles {sorted(tiles)}, not all of {gm._ROW_TILES}")
+    _mellum2_layer_never_syncs()
+    if slower:
+        fail(f"grouped: slower than the per-expert loop at {slower}")
+    return rec
+
+
+def _mellum2_layer_never_syncs() -> None:
+    """One Mellum2 MoE layer call at the decode and prefill shapes under
+    ``set_sync_debug_mode("error")``: two launches, and the output within
+    GROUPED_REL_TOL of the same call on the per-expert loop (one weight
+    requiring grad, so autograd records); then a bf16 call with a weight the
+    kernels do not take (a transposed copy) raises, as no layout falls back
+    to the loop on the card."""
+    import bench.harness
+    import bench.spec
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe as M
+    model = bench.spec.config(bench.spec.benchmark(ROOT), MELLUM2_CONFIG, ROOT)["model"]
+    cfg = bench.harness.port_config(model)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    p = M.moe_init(g, cfg, dtype=torch.bfloat16)
+    for b, s in ((64, 1), (1, 1500)):
+        x = torch.randn((b, s, cfg.d_model), generator=g, device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            M.moe_ffn(p, x, cfg)                            # warm: builds, allocates
+            torch.cuda.synchronize()
+            before = gm.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y, _ = M.moe_ffn(p, x, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launched = gm.launches - before
+        live = {**p, "w_up": p["w_up"].detach().requires_grad_(True)}
+        want, _ = M.moe_ffn(live, x, cfg)                  # autograd records: the loop
+        looped = gm.launches - before - launched
+        _, err = _errs(y, want.detach())
+        print(f"[kernels] grouped: one Mellum2 MoE layer call at x ({b}, {s}, {cfg.d_model}) "
+              f"under set_sync_debug_mode('error'): no sync, {launched} launches; "
+              f"max|layer - loop route| / max|loop route| {err:.3e} (bound "
+              f"{GROUPED_REL_TOL:g}), kernel launches on the loop route {looped}", flush=True)
+        if launched != 2 or looped or not err <= GROUPED_REL_TOL:
+            fail(f"grouped: a Mellum2 layer call launched {launched} kernels (want 2), the "
+                 f"loop route {looped} (want 0), or differs from the loop route by {err:.3e}")
+        del live, want
+    bad = {**p, "w_up": p["w_up"].transpose(1, 2).contiguous().transpose(1, 2)}
+    try:
+        with torch.no_grad():
+            M.moe_ffn(bad, x, cfg)
+    except ValueError as exc:
+        print(f"[kernels] grouped: a bf16 layer call with a transposed w_up raises: "
+              f"{str(exc)[:80]}...", flush=True)
+    else:
+        fail("grouped: a bf16 layer call with a weight the kernels do not take ran")
+    del p, bad
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2237,8 +2425,23 @@ def _family_counts() -> dict:
 
 def _zero_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import paged_attention as pa
-    fa.launches = fa.launches_wgmma = pa.launches = 0
+    fa.launches = fa.launches_wgmma = pa.launches = gm.launches = 0
+
+
+def _check_grouped(tag: str, cfg, calls: int) -> int:
+    """The grouped expert kernels' launches since ``_zero_counts``: 2 a MoE
+    layer (gate+up, down) and a model call, the loop never on the card."""
+    from repro_torch.kernels import grouped_matmul as gm
+    pattern = cfg.block_pattern
+    moe_layers = sum(pattern[i % len(pattern)].endswith("moe") for i in range(cfg.n_layers))
+    want = 2 * moe_layers * calls
+    print(f"[{tag}] grouped expert kernel launches {gm.launches} (want {want}: 2 a MoE layer "
+          f"and a model call, {calls} calls)", flush=True)
+    if gm.launches != want:
+        fail(f"{tag}: {gm.launches} grouped expert kernel launches, want {want}")
+    return gm.launches
 
 
 def _serve_family(tag: str, cfg, params, reqs, warm_prompt: int, **kw):
@@ -2419,6 +2622,7 @@ def phase_serve_moe_aligned() -> int:
         fail(f"serve moe aligned: launches {counts}, prefills {out['prefills']}; want {want} "
              f"({admissions} non-empty admissions x {cfg.n_layers} layers, decode steps x "
              f"{cfg.n_layers} layers)")
+    _check_grouped("serve moe aligned", cfg, out["decode_steps"] + out["prefills"])
     comp = out["completions"][0]
     _oracle_f32("oracle moe aligned", cfg, params, reqs[0].prompt, comp,
                 _aligned_path(params, PROMPT, GEN))
@@ -2430,7 +2634,7 @@ MELLUM2_CONFIG, MELLUM2_MAX_LEN = "mellum2-12b-a2.5b", 7168   # the code cell's 
 MELLUM2_PROMPTS, MELLUM2_REQ = (1500, 600), 4                  # requests of each length
 
 
-def phase_serve_mellum2_aligned() -> None:
+def phase_serve_mellum2_aligned() -> int:
     """Mellum2-12B-A2.5B whole through the end-aligned engine: window rings
     of 1024 beside rows of ``max_len``, prompts past the window and inside
     it; every admission one tensor-core flash launch a layer, every decode
@@ -2452,7 +2656,9 @@ def phase_serve_mellum2_aligned() -> None:
         fail(f"serve mellum2 aligned: launches {counts}, prefills {out['prefills']}; want "
              f"{want} ({len(reqs)} admissions x {cfg.n_layers} layers, decode steps x "
              f"{cfg.n_layers} layers)")
+    grouped = _check_grouped("serve mellum2 aligned", cfg, out["decode_steps"] + out["prefills"])
     del params
+    return grouped
 
 
 def phase_serve_moe_paged() -> int:
@@ -2486,6 +2692,8 @@ def phase_serve_moe_paged() -> int:
     want = {"flash_wgmma": 0, "flash_simt": 0, "paged": out["decode_steps"] * cfg.n_layers}
     if counts != want:
         fail(f"serve moe paged: launches {counts}; want {want} (decode steps x layers)")
+    _check_grouped("serve moe paged", cfg,
+                   out["decode_steps"] + sum(-(-len(r.prompt) // CHUNK) for r in reqs))
     _oracle_f32("oracle moe paged", cfg, params, reqs[0].prompt, out["completions"][0],
                 _paged_path(params, KIMI_PROMPT, KIMI_GEN))
     del params
@@ -3675,6 +3883,7 @@ def main() -> None:
     rec = _timed("kernels: paged attention", phase_kernels)
     _timed("kernels: rows decode", phase_rows_kernel)
     flash = _timed("kernels: flash attention", phase_flash_kernels)
+    grouped = _timed("kernels: grouped experts", phase_grouped_kernels)
     tile = _timed("kernels: matmul, matmul_acc, minplus", phase_tile_kernels)
     cfg = configs.get(ARCH)
     t0 = time.perf_counter()
@@ -3704,7 +3913,7 @@ def main() -> None:
     _timed("dry run", phase_dry_run, cfg, tp_figures, sp_runs)
     _timed("train layouts", phase_train_layouts, link)
     _timed("serve moe aligned", phase_serve_moe_aligned)
-    _timed("serve mellum2 aligned", phase_serve_mellum2_aligned)
+    grouped_launches = _timed("serve mellum2 aligned", phase_serve_mellum2_aligned)
     _timed("serve moe paged", phase_serve_moe_paged)
     for arch, (tag, _, _) in RECURRENT_ARCHS.items():
         _timed(f"serve {tag}", phase_serve_recurrent, arch)
@@ -3733,6 +3942,9 @@ def main() -> None:
                 tile[("minplus", torch.float32)]),
         _record("flash_attention", csrc + "flash_attention.cu", ref + "flash_attention.py:84",
                 flash_launches, flash[("serve prefill", torch.bfloat16)]),
+        # replaces no Pallas kernel: stands in for lax.ragged_dot
+        _record("grouped_matmul", csrc + "grouped_matmul.cu", "src/repro/models/moe.py:100",
+                grouped_launches, grouped["mellum2 decode"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,5 +5,7 @@
 prefill (``csrc/flash_attention.cu``).
 ``matmul`` / ``matmul_acc`` -- tiled f32 block products (``csrc/matmul.cu``).
 ``minplus`` -- the (min, +) product (``csrc/minplus.cu``).
+``grouped_matmul`` -- an MoE layer's grouped expert products, bounded by
+group offsets on the device (``csrc/grouped_matmul.cu``).
 ``ops`` re-exports them under the reference's names.
 """

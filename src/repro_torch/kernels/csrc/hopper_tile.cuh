@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA-fed kernels (matmul.cu's
 // wgmma tile for f16 inputs and its FFMA tile for f32 inputs,
-// flash_attention.cu's bf16 flash attention): TMA tensor maps built on the
+// flash_attention.cu's bf16 flash attention, grouped_matmul.cu's expert
+// products): TMA tensor maps built on the
 // host, mbarrier waits with phase bits, wgmma descriptors for
 // 128-byte-swizzled tiles, the wgmma.mma_async instructions the two
 // tensor-core kernels issue, all with an f32 accumulator, and the loads and
@@ -156,6 +157,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -5,8 +5,13 @@ One process (``ctx=None``): top-k routing on f32 logits (a stable
 descending sort, so ties go to the lower expert id as ``lax.top_k`` gives
 them), softmax over the k picked logits, the assignments sorted by expert
 (stable), and each expert's rows multiplied as one group (JAX's
-``lax.ragged_dot``: rows past the groups' sum give 0).  The expert products
-are plain matrix products, outside any kernel in the reference as here.
+``lax.ragged_dot``: rows past the groups' sum give 0).  The groups' bounds
+stay on the device (``_offsets``) and two launches of
+``kernels/grouped_matmul.py`` take them, gate and up in one and down in the
+other (the kernels on the card, their plain versions on the CPU); on
+``meta``, while autograd records, and on the card in f32 arithmetic, a loop
+of one product per expert runs instead, bounded by group sizes read back to
+the host (``_on_loop``).
 The outputs are combined without a scatter-add: each expert row is put back
 at its (token, slot) place and the k slots of a token are summed in slot
 order, so the sum is the same on every run (no atomics).
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.dseq import all_to_all_dim, copy_d, reduce_sum
 from repro_torch.core.mesh import AbstractMesh
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.runtime import trace
 
 Params = dict
@@ -138,32 +144,65 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, k: int):
     return top_i, torch.softmax(top_v, dim=-1), torch.softmax(logits, dim=-1)
 
 
-def _grouped(xs: torch.Tensor, w: torch.Tensor, sizes: List[int], dtype) -> torch.Tensor:
-    """``lax.ragged_dot``: rows of ``xs`` in consecutive groups of
-    ``sizes``, group e times ``w[e]`` (cast to ``dtype`` one expert at a
-    time); rows past the groups' sum give 0."""
-    outs, lo = [], 0
-    for e, n in enumerate(sizes):
-        if n:
-            outs.append(torch.matmul(xs[lo:lo + n], w[e].to(dtype)))
-            lo += n
-    if lo < xs.shape[0] or not outs:
-        outs.append(xs.new_zeros((xs.shape[0] - lo, w.shape[-1])))
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
+def _on_loop(xs: torch.Tensor, ws) -> bool:
+    """Whether the experts' products take the per-expert loop
+    (``grouped_matmul.ragged_swiglu``): on ``meta`` (the dry run counts the
+    balanced split's products), while autograd records (the kernels have no
+    backward), and on the card in f32 arithmetic (the kernels are bf16's;
+    the card's f32 oracles run so).  What decides is the call's device,
+    dtype and autograd state, never its layout: every other call takes the
+    offsets on the device, and on the card a layout the kernels do not take
+    raises there."""
+    if xs.device.type == "meta":
+        return True
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, *ws)):
+        return True
+    return xs.is_cuda and xs.dtype == torch.float32
 
 
-def _expert_ffn(xs, sizes, w_gate, w_up, w_down, dtype) -> torch.Tensor:
-    """Grouped SwiGLU over rows sorted by expert, in a ``moe.experts`` span
-    (``experts``: those given a row; ``rows``: the assignments, from the
-    host's ``sizes``)."""
+def _expert_ffn(xs, eid, w_gate, w_up, w_down, dtype, slots=None, scale=None) -> torch.Tensor:
+    """Grouped SwiGLU over rows sorted by expert id ``eid`` (ids at or past
+    E last; their rows give 0), in a ``moe.experts`` span (``experts``:
+    those given a row; ``rows``: the assignments).  With ``slots`` and
+    ``scale`` the rows come back put in place and weighted
+    (``grouped_matmul.scatter``; the down kernel's epilogue does it).  Off
+    the loop (``_on_loop``) the groups' offsets stay on the device and the
+    host reads nothing back, except while a profile records: then it reads
+    the sizes for the span (sync site ``moe_sizes``, as the loop reads them)
+    and waits for the products before the span ends (site ``moe_experts``),
+    so the device operations that start in the span are all of the
+    products."""
+    n = w_gate.shape[0]
+    xs = xs.to(dtype)
+    loop = _on_loop(xs, (w_gate, w_up, w_down))
+    if loop:
+        sizes = _sizes(eid, n)
+    else:
+        offsets = _offsets(eid, n)
+        with trace.span("sync", site="moe_sizes") as sp:
+            sizes = None if sp is trace._OFF else torch.diff(offsets).tolist()
     with trace.span("moe.experts") as sp:
         if sp is not trace._OFF:            # counted only while a profile records
-            sp.set(experts=sum(n > 0 for n in sizes), rows=sum(sizes))
-        xs = xs.to(dtype)
-        g = _grouped(xs, w_gate, sizes, dtype)
-        u = _grouped(xs, w_up, sizes, dtype)
-        h = F.silu(g.float()).to(dtype) * u
-        return _grouped(h, w_down, sizes, dtype)
+            sp.set(experts=sum(k > 0 for k in sizes), rows=sum(sizes))
+        if loop:
+            ys = gm.ragged_swiglu(xs, w_gate, w_up, w_down, sizes)
+            return ys if slots is None else gm.scatter(ys, slots, scale)
+        ys = gm.grouped_down(gm.grouped_gate_up(xs, w_gate, w_up, offsets), w_down, offsets,
+                             slots, scale)
+        if sp is not trace._OFF:
+            with trace.span("sync", site="moe_experts"):
+                if ys.is_cuda:
+                    torch.cuda.current_stream(ys.device).synchronize()
+        return ys
+
+
+def _offsets(eid: torch.Tensor, n: int) -> torch.Tensor:
+    """The groups' bounds of ids sorted ascending, on their device: (n + 1,)
+    int32, ``offsets[e]`` the ids below e (ids at or past n count in
+    none).  A binary search, so nothing is read back to the host (CUDA's
+    ``bincount`` reads the ids' range back)."""
+    return torch.searchsorted(eid, torch.arange(n + 1, dtype=eid.dtype, device=eid.device),
+                              out_int32=True)
 
 
 def _sizes(eid: torch.Tensor, n: int) -> List[int]:
@@ -192,12 +231,16 @@ def _kept(mask: torch.Tensor, full: int) -> torch.Tensor:
 def _combine(ys: torch.Tensor, slots: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """sum_j w[t, j] y[t, j] in f32, from expert rows ``ys[i]`` of the
     assignments ``slots[i]`` (flat index t * k + j; each at most once,
-    unlisted ones give 0).  A put and a sum over the k slots in order: no
-    scatter-add, so the result does not depend on the order of the rows."""
-    t, k = weights.shape
-    full = ys.new_zeros((t * k, ys.shape[-1]), dtype=torch.float32)
-    full = full.index_put((slots,), ys.float())
-    return (full.reshape(t, k, -1) * weights[..., None]).sum(dim=1)
+    unlisted ones give 0).  A weighted put and a sum over the k slots in
+    order: no scatter-add, so the result does not depend on the order of
+    the rows."""
+    return _slot_sum(gm.scatter(ys, slots, weights.reshape(-1)), weights.shape[1])
+
+
+def _slot_sum(full: torch.Tensor, k: int) -> torch.Tensor:
+    """The weighted rows of the (t * k) assignments summed over each token's
+    k slots, in slot order."""
+    return full.reshape(-1, k, full.shape[-1]).sum(dim=1)
 
 
 def _shared_ffn(x_flat: torch.Tensor, shared: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -218,11 +261,10 @@ def _body_all(x_e, route, w_gate, w_up, w_down, dtype) -> torch.Tensor:
     experts, the partial (T, d) f32 comes back."""
     top_i, weights = route
     k = weights.shape[1]
-    flat_e = top_i.reshape(-1)
-    g_order = torch.argsort(flat_e, stable=True)
+    eid, g_order = torch.sort(top_i.reshape(-1), stable=True)
     xs = x_e.index_select(0, g_order // k)
-    ys = _expert_ffn(xs, _sizes(flat_e, w_gate.shape[0]), w_gate, w_up, w_down, dtype)
-    return _combine(ys, g_order, weights)
+    full = _expert_ffn(xs, eid, w_gate, w_up, w_down, dtype, g_order, weights.reshape(-1))
+    return _slot_sum(full, k)
 
 
 def _body_ep(x_e, route, w_gate, w_up, w_down, cfg, dtype, *, ep: int, shard: int):
@@ -235,12 +277,11 @@ def _body_ep(x_e, route, w_gate, w_up, w_down, cfg, dtype, *, ep: int, shard: in
     cap = max(8, min(int(math.ceil(t * k / ep * e.capacity_factor)), t * k))
     flat_e = top_i.reshape(-1)
     mine = _kept(flat_e // e_local == shard, cap)[:cap]   # first come
-    eid = flat_e[mine] - shard * e_local
-    g_order = torch.argsort(eid, stable=True)
+    eid, g_order = torch.sort(flat_e[mine] - shard * e_local, stable=True)
     slots = mine[g_order]
     xs = x_e.index_select(0, slots // k)
-    ys = _expert_ffn(xs, _sizes(eid, e_local), w_gate, w_up, w_down, dtype)
-    return _combine(ys, slots, weights)
+    full = _expert_ffn(xs, eid, w_gate, w_up, w_down, dtype, slots, weights.reshape(-1))
+    return _slot_sum(full, k)
 
 
 def _body_a2a(x_flat, x_sh, route, w_gate, w_up, w_down, shared, cfg, dtype, ctx):
@@ -268,12 +309,11 @@ def _body_a2a(x_flat, x_sh, route, w_gate, w_up, w_down, shared, cfg, dtype, ctx
     meta = meta.index_put((place,), flat_e[sel] % e_local)
     rx = all_to_all_dim(send.reshape(dp, cap, d), "data", 0, 0, mesh).reshape(dp * cap, d)
     reid = mesh.all_to_all(meta, "data")
-    reid = torch.where(reid >= 0, reid, e_local)
-    g_order = torch.argsort(reid, stable=True)
+    reid, g_order = torch.sort(torch.where(reid >= 0, reid, e_local), stable=True)
     # the received rows are the same on every rank of a model group, each
     # multiplies its ff slice: the input's cotangent sums over model
     xs = copy_d(rx, M, mesh).index_select(0, g_order)
-    ys = _expert_ffn(xs, _sizes(reid, e_local), w_gate, w_up, w_down, dtype)
+    ys = _expert_ffn(xs, reid, w_gate, w_up, w_down, dtype)
     ys = reduce_sum(ys.float(), M, mesh)
     back = ys.new_zeros(ys.shape).index_put((g_order,), ys)      # unsorted
     back = all_to_all_dim(back.reshape(dp, cap, d), "data", 0, 0, mesh).reshape(dp * cap, d)

@@ -257,9 +257,11 @@ def test_moe_spans_and_no_new_sync_site():
     sites = collections.Counter(s.attrs["site"] for s in spans if s.name == "sync")
     calls = MODEL["n_layers"] * (out["decode_steps"] + out["prefills"])
     assert count["moe.ffn"] == count["moe.experts"] == calls
-    # the syncs are the dense model's and one group-size read a layer a call
+    # the syncs are the dense model's and, only while a profile records, one
+    # group-size read and one wait for the products a layer a call
     assert sites == {"decode": out["decode_steps"], "first_token": out["prefills"],
-                     "h2d": 2 * (out["decode_steps"] + out["prefills"]), "moe_sizes": calls}
+                     "h2d": 2 * (out["decode_steps"] + out["prefills"]), "moe_sizes": calls,
+                     "moe_experts": calls}
     k = MODEL["moe"]["top_k"]
     tokens = sorted({s.attrs["rows"] for s in spans if s.name == "moe.ffn"})
     assert tokens == sorted({2} | {-(-lp // 8) * 8 for lp, _ in spec})   # slots, buckets
@@ -270,3 +272,5 @@ def test_moe_spans_and_no_new_sync_site():
             assert 1 <= s.attrs["experts"] <= min(MODEL["moe"]["n_experts"], s.attrs["rows"])
         if s.name == "sync" and s.attrs["site"] == "moe_sizes":
             assert by_id[s.parent].name == "moe.ffn"
+        if s.name == "sync" and s.attrs["site"] == "moe_experts":
+            assert by_id[s.parent].name == "moe.experts"

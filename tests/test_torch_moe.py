@@ -3,6 +3,9 @@
 expert), the load-balance loss, the expert-parallel body's capacity drops
 on each shard of a rank group, and three traps: the router and experts'
 dtypes, top-k / stable-sort order on ties, and a combine without atomics.
+The grouped products' offsets interface (``kernels/grouped_matmul.py``, its
+plain versions here) against JAX's ``lax.ragged_dot`` and the per-expert
+loop in f32, its edge cases, and which calls take it.
 
 JAX initialises the parameters; ``repro_torch.convert`` carries them over.
 Tolerances: f32 1e-5 (summation order only), bf16 2e-2.
@@ -12,12 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import config as jconfig
 from repro.models import moe as JM
 from repro_torch import config
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.models import moe as M
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,3 +198,176 @@ def test_combine_is_free_of_atomic_scatters():
         assert {op for op in bwd.seen if any(a in op for a in atomic)} <= {"index_add.default"}
         grads.append((out.detach(), xl.grad))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# (E, k, d, ff) of tiny layers shaped as Mixtral-8x22B's (few wide experts,
+# top-2), Mellum2-12B-A2.5B's (64 narrow experts, top-8) and Kimi-K2's (384
+# experts, top-8: most get no row)
+GROUPED_SHAPES = {"mixtral": (8, 2, 48, 128), "mellum2": (64, 8, 72, 24),
+                  "kimi": (384, 8, 56, 16)}
+
+
+def _grouped_case(e, k, d, ff, tokens, seed=0):
+    """Rows sorted by routed expert (top-k of random logits), their sorted
+    ids, the experts' f32 matrices, all from numpy."""
+    r = np.random.RandomState(seed)
+    top = np.argsort(-r.randn(tokens, e), axis=1, kind="stable")[:, :k].reshape(-1)
+    order = np.argsort(top, kind="stable")
+    eid = top[order]
+    xs = r.randn(tokens * k, d).astype(np.float32)
+    ws = [(r.randn(e, a, b) / np.sqrt(a)).astype(np.float32) for a, b in
+          ((d, ff), (d, ff), (ff, d))]
+    return xs, eid, ws
+
+
+def _ragged(x, w, sizes):
+    return np.asarray(jax.lax.ragged_dot(jnp.asarray(x), jnp.asarray(w),
+                                         jnp.asarray(sizes, jnp.int32)))
+
+
+@pytest.mark.parametrize("shape", sorted(GROUPED_SHAPES))
+def test_grouped_offsets_interface_matches_ragged_dot_and_the_loop(shape):
+    """The plain versions behind the offsets interface, gate+up with its
+    SiLU epilogue and down, equal JAX's ragged_dot and the per-expert loop
+    (``grouped_matmul.ragged_dot``) in f32, and the wrapper takes them on
+    the CPU."""
+    e, k, d, ff = GROUPED_SHAPES[shape]
+    xs, eid, (wg, wu, wd) = _grouped_case(e, k, d, ff, tokens=24)
+    sizes = np.bincount(eid, minlength=e)
+    t_eid = torch.from_numpy(eid)
+    offsets = M._offsets(t_eid, e)
+    np.testing.assert_array_equal(offsets.numpy(), np.concatenate([[0], np.cumsum(sizes)]))
+    assert offsets.dtype == torch.int32
+    txs, twg, twu, twd = (torch.from_numpy(a) for a in (xs, wg, wu, wd))
+    h = gm.grouped_gate_up(txs, twg, twu, offsets)
+    y = gm.grouped_down(h, twd, offsets)
+    want_h = np.asarray(jax.nn.silu(_ragged(xs, wg, sizes))) * _ragged(xs, wu, sizes)
+    np.testing.assert_allclose(h.numpy(), want_h, **TOL["float32"])
+    np.testing.assert_allclose(y.numpy(), _ragged(want_h, wd, sizes), **TOL["float32"])
+    n = sizes.tolist()
+    loop_h = F.silu(gm.ragged_dot(txs, twg, n)) * gm.ragged_dot(txs, twu, n)
+    torch.testing.assert_close(h, loop_h, **TOL["float32"])
+    torch.testing.assert_close(y, gm.ragged_dot(loop_h, twd, n), **TOL["float32"])
+    torch.testing.assert_close(y, gm.ragged_swiglu(txs, twg, twu, twd, n), **TOL["float32"])
+    assert torch.equal(h, gm.grouped_gate_up_ref(txs, twg, twu, offsets))
+    assert torch.equal(y, gm.grouped_down_ref(h, twd, offsets))
+    # the down product's scatter: rows put at their slots, weighted, in f32;
+    # two slots no row lists stay 0
+    rows = xs.shape[0]
+    r = np.random.RandomState(1)
+    slots = torch.from_numpy(r.permutation(rows + 2)[:rows])
+    scale = torch.from_numpy(r.rand(rows + 2).astype(np.float32))
+    full = gm.grouped_down(h, twd, offsets, slots, scale)
+    want = np.zeros((rows + 2, d), np.float32)
+    want[slots.numpy()] = y.numpy() * scale.numpy()[slots.numpy(), None]
+    np.testing.assert_array_equal(full.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["empty experts", "one expert", "rows past the groups"])
+def test_grouped_offsets_edge_cases(case):
+    """Experts with no row, every row in one expert, and rows at or past
+    ``offsets[E]`` (the token-routing layout's padding), which give exactly
+    0, as ragged_dot gives them."""
+    e, d, ff, rows = 6, 16, 8, 20
+    r = np.random.RandomState(2)
+    xs = r.randn(rows, d).astype(np.float32)
+    wg, wu = (r.randn(e, d, ff).astype(np.float32) for _ in range(2))
+    wd = r.randn(e, ff, d).astype(np.float32)
+    sizes = {"empty experts": [0, 7, 0, 0, 13, 0], "one expert": [0, 0, 20, 0, 0, 0],
+             "rows past the groups": [3, 0, 5, 4, 0, 1]}[case]
+    eid = np.repeat(np.arange(e + 1), sizes + [rows - sum(sizes)])
+    offsets = M._offsets(torch.from_numpy(eid), e)
+    assert offsets.tolist() == [0] + np.cumsum(sizes).tolist()
+    txs, twg, twu, twd = (torch.from_numpy(a) for a in (xs, wg, wu, wd))
+    h = gm.grouped_gate_up(txs, twg, twu, offsets)
+    y = gm.grouped_down(h, twd, offsets)
+    want_h = np.asarray(jax.nn.silu(_ragged(xs, wg, sizes))) * _ragged(xs, wu, sizes)
+    np.testing.assert_allclose(h.numpy(), want_h, **TOL["float32"])
+    np.testing.assert_allclose(y.numpy(), _ragged(want_h, wd, sizes), **TOL["float32"])
+    past = sum(sizes)
+    assert not h[past:].any() and not y[past:].any()
+    assert (past == rows) == (case != "rows past the groups")
+
+
+def test_grouped_wrapper_checks_and_row_tile():
+    """The wrapper raises on what neither route takes (no fallback), the
+    kernels take nothing on the CPU, and the row tile holds twice the mean
+    rows an expert: 16 at Mellum2's decode (512 assignments over 64), 128
+    (the largest) at its prefill and at Mixtral's, 8 (the smallest) at
+    Kimi-K2's decode."""
+    xs = torch.zeros((10, 16))
+    w = torch.zeros((4, 16, 8))
+    off = torch.tensor([0, 2, 5, 5, 10], dtype=torch.int32)
+    assert gm.grouped_gate_up(xs, w, w, off).shape == (10, 8)
+    with pytest.raises(ValueError, match="offsets"):
+        gm.grouped_gate_up(xs, w, w, off.long())
+    with pytest.raises(ValueError, match="offsets"):
+        gm.grouped_down(xs[:, :8], w.transpose(1, 2), off[:-1])
+    with pytest.raises(ValueError, match="need rows"):
+        gm.grouped_down(xs, w.transpose(1, 2), off)
+    with pytest.raises(ValueError, match="kernel takes"):
+        gm.grouped_gate_up(xs, w, w.to("meta"), off)
+    with pytest.raises(ValueError, match="together"):
+        gm.grouped_down(xs[:, :8], w.transpose(1, 2).contiguous(), off, slots=off.long())
+    with pytest.raises(ValueError, match="slots"):
+        gm.grouped_down(xs[:, :8], w.transpose(1, 2).contiguous(), off, off.long(),
+                        torch.ones(10))
+    assert not gm.takes(xs.bfloat16(), w.bfloat16())
+    assert [gm.row_tile(r, e) for r, e in ((512, 64), (12000, 64), (3000, 8), (512, 384))] == \
+        [16, 128, 128, 8]
+
+
+def test_expert_ffn_routes_by_what_the_call_is(monkeypatch):
+    """``meta`` calls (the dry run's balanced groups) and calls that
+    autograd records (the kernels have no backward) take the per-expert
+    loop; every other call takes the offsets interface, which reads no
+    group size back to the host while no profile records."""
+    jcfg, cfg = _cfgs(shared=0)
+    _, p = _params(jcfg, cfg)
+    _, x = _x("float32")
+    seen = []
+    loop, gate_up, sizes = gm.ragged_swiglu, gm.grouped_gate_up, M._sizes
+    monkeypatch.setattr(gm, "ragged_swiglu", lambda *a: seen.append("loop") or loop(*a))
+    monkeypatch.setattr(gm, "grouped_gate_up", lambda *a: seen.append("offsets") or gate_up(*a))
+    monkeypatch.setattr(M, "_sizes", lambda *a: seen.append("sizes") or sizes(*a))
+    with torch.no_grad():
+        want, _ = M.moe_ffn(p, x, cfg)
+    assert seen == ["offsets"]
+    seen.clear()
+    got, _ = M.moe_ffn(p, x.clone().requires_grad_(True), cfg)
+    assert seen == ["sizes", "loop"]
+    torch.testing.assert_close(got.detach(), want, **TOL["float32"])
+    seen.clear()
+    live = {n: (w.clone().requires_grad_(True) if n == "w_up" else w) for n, w in p.items()}
+    M.moe_ffn(live, x, cfg)
+    assert seen == ["sizes", "loop"]
+    seen.clear()
+    meta = {n: w.to("meta") for n, w in p.items()}
+    with torch.no_grad():
+        out, _ = M.moe_ffn(meta, x.to("meta"), cfg)
+    assert out.device.type == "meta" and seen == ["sizes", "loop"]
+
+
+class _OnCard:
+    """What ``moe._on_loop`` reads of a tensor on the card: its device,
+    dtype and autograd flag, and a layout the kernels may not take."""
+
+    def __init__(self, dtype, contiguous=True):
+        self.device, self.is_cuda, self.dtype = torch.device("cuda", 0), True, dtype
+        self.requires_grad, self.contiguous = False, contiguous
+
+    def is_contiguous(self):
+        return self.contiguous
+
+
+@pytest.mark.parametrize("dtype,contiguous,loop", [
+    (torch.bfloat16, True, False), (torch.bfloat16, False, False),
+    (torch.float16, True, False), (torch.float32, True, True)])
+def test_on_card_route_follows_precision_not_layout(dtype, contiguous, loop):
+    """On the card only f32 arithmetic takes the per-expert loop: a bf16 (or
+    f16) call goes to the kernels whatever its weights' layout, so a layout
+    they do not take raises in the wrapper instead of falling back."""
+    xs = _OnCard(dtype)
+    ws = (_OnCard(dtype, contiguous), _OnCard(dtype), _OnCard(dtype))
+    with torch.no_grad():
+        assert M._on_loop(xs, ws) is loop

@@ -228,11 +228,13 @@ def test_moe_run_records_its_group_sizes_sync():
     moe_layers = sum(k.endswith("moe") for k in cfg.block_pattern)
     assert moe_layers >= 1
     assert count["step.decode"] == steps and count["engine.admit"] == prefills
-    # one group-size read a MoE layer a step; one process takes every
-    # assignment (the capacity's ``_kept`` is an expert-parallel read)
+    # one group-size read and one wait for the products a MoE layer a step,
+    # both only while a profile records; one process takes every assignment
+    # (the capacity's ``_kept`` is an expert-parallel read)
     assert sites == {"decode": steps, "first_token": prefills,
                      "h2d": 2 * steps + 2 * prefills,
-                     "moe_sizes": moe_layers * (steps + prefills)}
+                     "moe_sizes": moe_layers * (steps + prefills),
+                     "moe_experts": moe_layers * (steps + prefills)}
 
 
 def test_recurrent_admission_records_its_token_loop():
