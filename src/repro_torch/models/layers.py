@@ -74,15 +74,16 @@ combine, as one process does; ``launch.specs.kv_slots``):
     slots), and outside autograd the rank's S/p query rows go through the
     flash kernel against the keys ``[0, (r+1) S/p)`` (causal: the rows are
     end-aligned to them);
-  * a decode step (and any other call) runs with q replicated: the q, k
-    and v columns are gathered in one ``allGatherD``, a row's token is
-    written only on the rank that owns its slot, each rank scores its
-    slots, and the softmax combines over ``model`` (``_sdpa_split``: an
-    all-reduce of the row max, the rescale, an all-reduce of the sum and
-    the unnormalised output, in f32); a shard with no valid slot weighs 0.
-    A fused prefill from 0 whose S does not split over ``model`` (or that
-    is longer than the ring) attends the whole gathered k/v through the
-    flash kernel on every rank, as one process does;
+  * a decode step (and any other call) runs with q replicated through
+    the one-process code (``_rows_attention``): the q, k and v columns are
+    gathered in one ``allGatherD``, a row's token is written only on the
+    rank that owns its slot, each rank scores its slots, and the softmax
+    combines over ``model`` (``_sdpa_split``: an all-reduce of the row
+    max, the rescale, an all-reduce of the sum and the unnormalised
+    output, in f32); a shard with no valid slot weighs 0.  A fused prefill
+    from 0 whose S does not split over ``model`` (or that is longer than
+    the ring) goes through the flash kernel on every rank, as one process
+    does, over the whole gathered k/v where the cache is split;
   * the paged arenas and block tables are replicated over ``model``: each
     rank writes and reads its batch rows, through the paged-attention
     kernel in decode;
@@ -286,15 +287,14 @@ def _qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale.float()).to(x.dtype)
 
 
-def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset,
-          kv_len_valid=None) -> torch.Tensor:
-    """Grouped SDPA.  q: (B, Lq, Hkv, rep, hd); k, v: (B, Lk, Hkv, hd).
-    ``q_offset``: absolute position of q[0] minus the first key position --
-    an int, a 0-d tensor, or (B,) for per-row positions.  ``kv_len_valid``:
-    number of valid key slots, scalar or (B,).  Scores and softmax in f32;
-    the probabilities are cast to q's dtype for P.V (the JAX discipline,
-    which ``scaled_dot_product_attention`` does not share)."""
-    b, lq, hkv, rep, hd = q.shape
+def _scores(q, k, *, causal: bool, window: Optional[int], q_offset, k_offset: int = 0,
+            kv_len_valid=None):
+    """The f32 scores (B, Hkv, rep, Lq, Lk) of q (B, Lq, Hkv, rep, hd) against
+    k (B, Lk, Hkv, hd), and the (B or 1, Lq, Lk) mask of the keys each query
+    reads: causal and window by position, q[0] at ``q_offset`` (an int, a
+    0-d tensor, or (B,) for per-row positions) and k[0] at ``k_offset``,
+    and the first ``kv_len_valid`` key positions (scalar or (B,))."""
+    lq, hd = q.shape[1], q.shape[-1]
     lk = k.shape[1]
     dev = q.device
     scale = 1.0 / math.sqrt(hd)
@@ -303,7 +303,7 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset,
     # (Lq,) for a scalar offset, (B, Lq) for per-row offsets; a Python int
     # stays on the host (no copy, no sync)
     qpos = torch.arange(lq, device=dev) + (q_offset[:, None] if per_row else q_offset)
-    kpos = torch.arange(lk, device=dev)
+    kpos = torch.arange(k_offset, k_offset + lk, device=dev)
     mask = torch.ones(qpos.shape + (lk,), dtype=torch.bool, device=dev)
     if causal:
         mask &= kpos <= qpos[..., None]
@@ -313,9 +313,20 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset,
         if torch.is_tensor(kv_len_valid) and kv_len_valid.dim() == 1:
             kv_len_valid = kv_len_valid[:, None, None]
         mask = mask & (kpos < kv_len_valid)
-    if mask.dim() == 3:                       # per-row mask: (B, 1, 1, Lq, Lk)
-        mask = mask[:, None, None]
-    s = s.masked_fill(~mask, NEG_INF)
+    return s, (mask[None] if mask.dim() == 2 else mask)
+
+
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset,
+          kv_len_valid=None) -> torch.Tensor:
+    """Grouped SDPA.  q: (B, Lq, Hkv, rep, hd); k, v: (B, Lk, Hkv, hd).
+    ``q_offset``: absolute position of q[0] minus the first key position --
+    an int, a 0-d tensor, or (B,) for per-row positions.  ``kv_len_valid``:
+    number of valid key slots, scalar or (B,).  Scores and softmax in f32;
+    the probabilities are cast to q's dtype for P.V (the JAX discipline,
+    which ``scaled_dot_product_attention`` does not share)."""
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset,
+                      kv_len_valid=kv_len_valid)
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(q.dtype))
 
@@ -392,6 +403,75 @@ def _rows_decode(q, ck, cv, lengths) -> torch.Tensor:
                            _rows_table(b, lk // blk, ck.device), lengths)[:, None]
 
 
+def _rows_attention(q, k, v, cache, cache_pos, positions, length, lo: int, lk: int,
+                    cfg: ModelConfig, ctx) -> torch.Tensor:
+    """``attention`` over end-aligned rows: ``cache`` is the (K, V) block
+    ``(B, L, Hkv, hd)`` holding the slots ``[lo, lo + L)`` of rows of ``lk``
+    slots (one process: all of them; a rank: ``launch.specs.kv_slots``).
+    Writes first, in place: a token a row at its (B,) ``cache_pos`` (a
+    scalar position is JAX's ``dynamic_update_slice`` clamp, then per row),
+    only into the block that holds its slot (a position past the row
+    drops); a prompt at scalar ``cache_pos`` through ``_write_prefill``
+    (``length``: its true (B,) lengths).  Then q attends end-aligned to the
+    rows; a block of part of the rows (``lk > L``) combines its share over
+    ``model`` (``_sdpa_split``)."""
+    ck, cv = cache
+    b, s, _, rep, hd = q.shape
+    split = lk > ck.shape[1]
+    per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+    # a decode of one token a row reads slots [0, cache_pos + 1) (the
+    # causal mask; a parked row all of them), or on a ring its first
+    # pos + 1 slots until the first wrap: on one process, at (B,)
+    # positions, through the kernel where it takes the shapes (each row's
+    # K/V read once, up to its length), else ``_sdpa`` (every whole row,
+    # widened to f32)
+    rows = (per_row and s == 1 and ctx is None and not q.requires_grad and ck.is_contiguous()
+            and cv.is_contiguous() and rows_decode_takes(q.dtype, ck.dtype, rep, hd, lk))
+    if s == 1 and not per_row:
+        # read on the host, but a ``meta`` position (the dry run's) has no
+        # value and is clamped as a tensor
+        if torch.is_tensor(cache_pos) and cache_pos.device.type == "meta":
+            cache_pos = torch.clamp(cache_pos, 0, lk - 1).expand(b)
+        else:
+            cache_pos = torch.as_tensor(min(max(int(cache_pos), 0), lk - 1),
+                                        device=k.device).expand(b)
+        per_row = True
+    if per_row:
+        at = cache_pos - lo if lo else cache_pos
+        _write_rows(ck, at, k[:, 0])
+        _write_rows(cv, at, v[:, 0])
+    else:
+        _write_prefill(ck, cv, k, v, cache_pos, lo, lk, n_real=length)
+    if s > lk:
+        # prefill longer than the ring: attend the full in-flight k/v (the
+        # cache holds only the trailing window)
+        return _flash(q, k, v, causal=True, window=cfg.window)
+    if cfg.window is not None and lk == cfg.window and s == 1:
+        # ring decode: before the first wrap only pos+1 slots hold real
+        # tokens (the untouched slots would soak up softmax mass)
+        valid = torch.clamp(positions[..., -1] + 1, max=lk)
+        if rows:
+            return _rows_decode(q, ck, cv, valid.to(torch.int32))
+        mask = dict(causal=False, window=None, q_offset=0, kv_len_valid=valid)
+    elif isinstance(cache_pos, int) and cache_pos == 0:
+        # fused prefill from position 0: Lq == Lk == s, in the cache's dtype
+        # as JAX reads them (keys past s are causally invisible): the rows
+        # just written, or on a block of part of them the whole gathered k/v
+        if split:
+            return _flash(q, k.to(ck.dtype), v.to(cv.dtype), causal=True, window=cfg.window)
+        return _flash(q, ck[:, :s], cv[:, :s], causal=True, window=cfg.window)
+    elif rows:
+        # rows shorter than a window (``init_cache`` caps a ring at it):
+        # the window masks nothing
+        return _rows_decode(q, ck, cv, torch.clamp(cache_pos + 1, max=lk).to(torch.int32))
+    else:
+        # end-aligned: query position == cache_pos
+        mask = dict(causal=True, window=cfg.window, q_offset=cache_pos)
+    if split:
+        return _sdpa_split(q, ck, cv, ctx, k_offset=lo, **mask)
+    return _sdpa(q, ck, cv, **mask)
+
+
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -406,11 +486,13 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     No cache: full (causal) attention over x, through the flash kernel, or
     through ``_sdpa`` when autograd records it.
     End-aligned cache (``cache`` without ``block_tables``): per-slot rows
-    ``(B, L, Hkv, hd)``.  Decode writes each row's token at its own (B,)
-    ``cache_pos`` (a position past the row drops); a fused prefill writes at
-    scalar ``cache_pos`` (an SWA prompt longer than the ring keeps its last L
-    tokens at their ring slots: the last L of its true ``length``, (B,),
-    where one is given); then q attends end-aligned to the cache.
+    ``(B, L, Hkv, hd)``, on one process and on a rank alike
+    (``_rows_attention``).  Decode writes each row's token at its own (B,)
+    ``cache_pos``, or at one scalar position for every row (a position
+    past the row drops); a fused prefill writes at scalar ``cache_pos`` (an
+    SWA prompt longer than the ring keeps its last L tokens at their ring
+    slots: the last L of its true ``length``, (B,), where one is given);
+    then q attends end-aligned to the cache.
     Paged decode/prefill (``cache`` and ``block_tables`` given): ``cache`` is
     the (K, V) pair of page arenas ``(n_blocks, block, Hkv, hd)``; each
     request writes and reads through its block-table row.  Decode is a (B,)
@@ -427,7 +509,7 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
         if _tp_axis(ctx) is not None:
             return _attention_ctx(p, x, positions, cfg, causal=causal, ctx=ctx, cache=cache,
                                   cache_pos=cache_pos, block_tables=block_tables,
-                                  xattn_kv=xattn_kv)
+                                  xattn_kv=xattn_kv, length=length)
         # pure DP: the attention of one device on the gathered weights
         d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
@@ -448,50 +530,9 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelCon
     if xattn_kv is not None:
         out = _sdpa(q, k, v, causal=False, window=cfg.window, q_offset=0)
     elif cache is not None and block_tables is None:
-        ck, cv = cache                      # (B, L, Hkv, hd) rows
-        lk = ck.shape[1]
-        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
-        if per_row:
-            # continuous-batching decode (s == 1): each row writes its token
-            # at its own slot; a parked slot past the row drops its write
-            _write_rows(ck, cache_pos, k[:, 0])
-            _write_rows(cv, cache_pos, v[:, 0])
-        else:
-            _write_prefill(ck, cv, k, v, cache_pos, 0, n_real=length)
-        new_cache = (ck, cv)
-        # a decode of one token a row reads slots [0, cache_pos + 1) (the
-        # causal mask; a parked row all of them), or on a ring its first
-        # pos + 1 slots until the first wrap: through the kernel where it
-        # takes the shapes (each row's K/V read once, up to its length),
-        # else ``_sdpa`` (every whole row, widened to f32)
-        rows = (per_row and s == 1 and ctx is None and not q.requires_grad and ck.is_contiguous()
-                and cv.is_contiguous()
-                and rows_decode_takes(q.dtype, ck.dtype, rep, hd, lk))
-        if s > lk:
-            # prefill longer than the ring: attend the full in-flight k/v
-            # (the cache holds only the trailing window)
-            out = _flash(q, k, v, causal=True, window=cfg.window)
-        elif cfg.window is not None and lk == cfg.window and s == 1:
-            # ring decode: before the first wrap only pos+1 slots hold real
-            # tokens (the untouched slots would soak up softmax mass)
-            valid = torch.clamp(positions[..., -1] + 1, max=lk)
-            if rows:
-                out = _rows_decode(q, ck, cv, valid.to(torch.int32))
-            else:
-                out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
-                            kv_len_valid=valid)
-        elif isinstance(cache_pos, int) and cache_pos == 0:
-            # fused prefill from position 0: Lq == Lk == s over the rows just
-            # written, in the cache's dtype as JAX reads them (keys past s
-            # are causally invisible)
-            out = _flash(q, ck[:, :s], cv[:, :s], causal=True, window=cfg.window)
-        elif rows:
-            # rows shorter than a window (``init_cache`` caps a ring at it):
-            # the window masks nothing
-            out = _rows_decode(q, ck, cv, torch.clamp(cache_pos + 1, max=lk).to(torch.int32))
-        else:
-            # end-aligned: query position == cache_pos
-            out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)
+        out = _rows_attention(q, k, v, cache, cache_pos, positions, length, 0,
+                              cache[0].shape[1], cfg, ctx)
+        new_cache = cache
     elif cache is not None:
         out, new_cache = _paged(q, k, v, cache, cache_pos, block_tables, cfg)
     elif q.requires_grad:
@@ -519,18 +560,17 @@ def _qk_rope(p: Params, q, k, positions, cfg: ModelConfig, *, rope_on: bool,
 
 
 def _write_prefill(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   cache_pos, lo: int, length: Optional[int] = None, n_real=None) -> None:
+                   cache_pos, lo: int, lk: int, n_real=None) -> None:
     """A fused prefill's K/V (B, S, ..) into the cache slots ``[lo, lo +
-    ck.shape[1])`` of a row of ``length`` slots (default: all of them
-    here): at ``cache_pos`` on, with JAX's ``dynamic_update_slice`` clamp
-    of the start so the update fits the row; a prompt longer than the row
-    (an SWA ring) keeps its last ``length`` tokens at their ring slots
-    (token j -> slot j % length), of each row's first ``n_real`` (B,) tokens
-    (default: all S; a right-padded bucket passes its true lengths, and
-    slots past a shorter prompt get its token 0, behind the decode's
-    length).  Slots outside the block are another rank's."""
+    ck.shape[1])`` of a row of ``lk`` slots: at ``cache_pos`` on, with
+    JAX's ``dynamic_update_slice`` clamp of the start so the update fits
+    the row; a prompt longer than the row (an SWA ring) keeps its last
+    ``lk`` tokens at their ring slots (token j -> slot j % lk), of each
+    row's first ``n_real`` (B,) tokens (default: all S; a right-padded
+    bucket passes its true lengths, and slots past a shorter prompt get its
+    token 0, behind the decode's length).  Slots outside the block are
+    another rank's."""
     s, nl = k.shape[1], ck.shape[1]
-    lk = length if length is not None else nl
     if s > lk:
         g = torch.arange(lo, lo + nl, device=k.device)
         n = s if n_real is None else n_real
@@ -716,25 +756,10 @@ def _sdpa_split(q, k, v, ctx, *, causal: bool, window: Optional[int], q_offset,
     shard (or a row of one) with no valid slot has max -inf, weight 0 and
     output 0, and its V is never read (masked slots are zeroed first, so
     no 0 x NaN)."""
-    b, lq, hkv, rep, hd = q.shape
-    lk = k.shape[1]
+    b, lk, hd = q.shape[0], k.shape[1], q.shape[-1]
     dev, mesh, M = q.device, ctx.mesh, ctx.model_axis
-    scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", (q * scale).float(), k.float())
-    per_row = torch.is_tensor(q_offset) and q_offset.dim() == 1
-    qpos = torch.arange(lq, device=dev) + (q_offset[:, None] if per_row else q_offset)
-    kpos = k_offset + torch.arange(lk, device=dev)
-    mask = torch.ones(qpos.shape + (lk,), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= kpos <= qpos[..., None]
-    if window is not None:
-        mask &= qpos[..., None] - kpos < window
-    if kv_len_valid is not None:
-        if torch.is_tensor(kv_len_valid) and kv_len_valid.dim() == 1:
-            kv_len_valid = kv_len_valid[:, None, None]
-        mask = mask & (kpos < kv_len_valid)
-    if mask.dim() == 2:
-        mask = mask[None]                                   # (1, Lq, Lk)
+    s, mask = _scores(q, k, causal=causal, window=window, q_offset=q_offset,
+                      k_offset=k_offset, kv_len_valid=kv_len_valid)
     live = mask.any(dim=1).expand(b, lk)                    # (B, Lk): slots some query reads
     v = torch.where(live[:, :, None, None], v, torch.zeros((), dtype=v.dtype, device=dev))
     s = s.masked_fill(~mask[:, None, None], float("-inf"))
@@ -749,7 +774,7 @@ def _sdpa_split(q, k, v, ctx, *, causal: bool, window: Optional[int], q_offset,
 
 def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig, *,
                    causal: bool, ctx, cache=None, cache_pos=None, block_tables=None,
-                   xattn_kv: Optional[torch.Tensor] = None):
+                   xattn_kv: Optional[torch.Tensor] = None, length=None):
     """Attention on this rank's batch rows ``x`` (b, S, d), replicated over
     ``model``; returns the rank's (b, S, d) output, also replicated, and
     the cache.  Under a sequence-sharded residual (``seq_sharded``) ``x``
@@ -840,51 +865,9 @@ def _attention_ctx(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Mod
     elif block_tables is not None:
         out, new_cache = _paged(q, k, v, cache, cache_pos, block_tables, cfg)
     elif cache is not None:
-        ck, cv = cache                        # this rank's slots of each row
-        lo, lk = kv_slots(ck, ctx)
-        split = lk > ck.shape[1]              # else whole: every rank holds every slot
-        per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
-        if s == 1 and not per_row:
-            # a scalar position: JAX's dynamic_update_slice clamp, then per
-            # row; read on the host, but a ``meta`` position (the dry run's)
-            # has no value and is clamped as a tensor
-            if torch.is_tensor(cache_pos) and cache_pos.device.type == "meta":
-                cache_pos = torch.clamp(cache_pos, 0, lk - 1).expand(b)
-            else:
-                cache_pos = torch.as_tensor(min(max(int(cache_pos), 0), lk - 1),
-                                            device=x.device).expand(b)
-            per_row = True
-        if per_row:
-            # the token is written on the rank that owns its slot (on every
-            # rank, for a whole cache)
-            _write_rows(ck, cache_pos - lo, k[:, 0])
-            _write_rows(cv, cache_pos - lo, v[:, 0])
-        else:
-            _write_prefill(ck, cv, k, v, cache_pos, lo, lk)
-        new_cache = (ck, cv)
-        if s > lk:
-            # prefill longer than the ring: the full in-flight k/v, as on
-            # one process
-            out = _flash(q, k, v, causal=True, window=cfg.window)
-        elif cfg.window is not None and lk == cfg.window and s == 1:
-            valid = torch.clamp(positions[..., -1] + 1, max=lk)
-            if split:
-                out = _sdpa_split(q, ck, cv, ctx, causal=False, window=None, q_offset=0,
-                                  k_offset=lo, kv_len_valid=valid)
-            else:
-                out = _sdpa(q, ck, cv, causal=False, window=None, q_offset=0,
-                            kv_len_valid=valid)
-        elif isinstance(cache_pos, int) and cache_pos == 0:
-            # a fused prefill from 0 whose S does not split over ``model``:
-            # every rank holds the whole k/v, read in the cache's dtype as
-            # the one-process path reads its rows
-            out = _flash(q, k.to(ck.dtype), v.to(cv.dtype), causal=True, window=cfg.window)
-        elif split:
-            out = _sdpa_split(q, ck, cv, ctx, causal=True, window=cfg.window,
-                              q_offset=cache_pos, k_offset=lo)
-        else:
-            # a whole cache: every slot scored here, no combine over ``model``
-            out = _sdpa(q, ck, cv, causal=True, window=cfg.window, q_offset=cache_pos)
+        out = _rows_attention(q, k, v, cache, cache_pos, positions, length,
+                              *kv_slots(cache[0], ctx), cfg, ctx)
+        new_cache = cache
     elif q.requires_grad:
         out = _sdpa(q, k, v, causal=causal, window=cfg.window, q_offset=0)
     else:

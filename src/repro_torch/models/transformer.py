@@ -461,7 +461,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     or a (B,) tensor of per-row positions (continuous-batching slots advance
     independently).  Without ``block_tables`` the cache is the end-aligned
     rows (SWA: a ring, written at ``pos % window``, each layer at its own
-    window where they are per layer) and the recurrent
+    window, ``ModelConfig.layer_config``) and the recurrent
     state; ``block_tables`` (B, P): the paged cache, each row addressing
     its own page chain.  Returns (logits (B, V) f32, cache).  ``ctx``: as
     ``prefill``'s (the rank's rows of ``token``, ``pos`` and
@@ -470,12 +470,9 @@ def decode_step(params: Params, token: torch.Tensor, cache: Cache, pos: torch.Te
     ctx = L.replicated_seq(ctx)
     h = L.embed(params["embed"], token[:, None], cfg, ctx)     # (B, 1, d)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    if cfg.layer_windows is None:
-        cache_pos = pos if cfg.window is None else pos % cfg.window
-    else:
-        windows = [cfg.layer_config(i).window for i in range(cfg.n_layers)]
-        ring = {w: pos % w for w in set(windows) if w is not None}
-        cache_pos = [pos if w is None else ring[w] for w in windows]
+    windows = [cfg.layer_config(i).window for i in range(cfg.n_layers)]
+    ring = {w: pos % w for w in set(windows) if w is not None}
+    cache_pos = [pos if w is None else ring[w] for w in windows]
     h = _layers(params, h, positions, cfg, cache, cache_pos, block_tables, ctx)
     h = L.apply_norm(params["final_norm"], h, cfg)
     return L.logits(params["embed"], h, cfg, ctx)[:, 0], cache

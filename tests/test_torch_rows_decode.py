@@ -167,3 +167,35 @@ def test_served_tokens_equal_the_plain_route(monkeypatch, dtype):
     for i, (_, gen, _) in enumerate(spec):
         assert got["completions"][i].tokens == want["completions"][i].tokens, i
         assert len(got["completions"][i].tokens) == gen
+
+
+@pytest.mark.parametrize("window,pos", [(None, 21), (16, 9), (16, 37)],
+                         ids=["full", "ring_before_wrap", "ring_after_wrap"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_scalar_position_decode_matches_per_row(monkeypatch, dtype, window, pos):
+    """A one-process decode step at one scalar position writes and reads as
+    the same step at that position given per row: the same rows after the
+    write, the same greedy tokens, logits within the kernel's bound.  Only
+    the per-row step reads through the kernel, one call a layer."""
+    cfg = configs.reduced(configs.get("chatglm3-6b")).replace(dtype=str(dtype)[6:], vocab=64,
+                                                              window=window)
+    params = T.init(cfg, torch.Generator().manual_seed(0))
+    b, max_len = 3, 48
+    g = torch.Generator().manual_seed(2)
+    cache = [tuple(torch.randn((b, min(max_len, window or max_len), cfg.n_kv_heads, cfg.hd),
+                               generator=g).to(torch.bfloat16) for _ in range(2))
+             for _ in range(cfg.n_layers)]
+    token = torch.randint(0, cfg.vocab, (b,), generator=g, dtype=torch.int32)
+
+    def step(at):
+        rows = [tuple(t.clone() for t in kv) for kv in cache]
+        return T.decode_step(params, token, rows, at, cfg)
+    calls = _Calls(monkeypatch)
+    got, got_rows = step(torch.tensor(pos))
+    assert calls.n == 0
+    want, want_rows = step(torch.full((b,), pos))
+    assert calls.n == cfg.n_layers
+    for a, w in zip(got_rows, want_rows):
+        assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(got, want, **TOL[dtype])
