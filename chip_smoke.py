@@ -103,9 +103,13 @@ Between 6 and 7, on the same model and request mix as 4:
                  through the wgmma flash kernel in every layer, so its launch
                  count must equal non-empty admissions x 28 (and the CUDA-core
                  flash kernel's 0), and every decode step reads the rows
-                 through the paged-attention kernel (launches = decode steps
-                 x 28); prints the share of greedy tokens equal to the paged
-                 engine's (not gated);
+                 through the paged-attention kernel (launches = the decode
+                 steps whose Python ran x 28: the eager warm-up and the
+                 capture of the engine's CUDA graph, every other step a
+                 replay); its tokens must equal those of an eager engine
+                 (the decode graph refused) on the same requests, every
+                 one; prints the share of greedy tokens equal to the
+                 paged engine's (not gated);
   oracle aligned -- one served request re-run teacher-forced through a fused
                  prefill and end-aligned decode steps, against ``forward``.
 
@@ -185,16 +189,20 @@ the H100 constants' NVLink and on the staging link fitted in phase 7.
 
 Then the other model families, each model's memory freed before the next
 (bf16 matrices from a seeded generator on the card; each serve phase zeroes
-the kernels' launch counts just before its run and reads them just after):
+the kernels' launch counts just before its run and reads them just after;
+an end-aligned phase first serves the same requests through an eager
+engine, the decode graph refused, and its graphed engine's tokens must
+equal those, every one):
 
   serve moe aligned -- Mixtral-8x22B at its published width (d 6144, 48/8
                  heads, hd 128, 8 experts top-2, d_ff 16384, window 4096),
                  depth cut from 56 to 4 layers (20.8 GB; the whole model is
                  282 GB), through ``Scheduler(paged=False)`` on the llama
                  phases' mix: tensor-core flash launches = non-empty
-                 admissions x 4, paged launches = decode steps x 4 (the
-                 decode over the rows), grouped expert launches = 2 x 4 x
-                 model calls; then one served request teacher-forced
+                 admissions x 4, paged launches = decode calls x 4 (the
+                 decode over the rows; a replay of the decode graph calls
+                 no wrapper), grouped expert launches = 2 x 4 x model
+                 calls; then one served request teacher-forced
                  through a fused prefill and end-aligned decode steps
                  against ``forward``, both in f32 arithmetic on the served
                  bf16 weights (f32 cache), with the (token, layer) top-2
@@ -205,7 +213,7 @@ the kernels' launch counts just before its run and reads them just after):
                  tokens (past the 1024 window) and 4 of 600, 4 slots, bucket
                  16: tensor-core flash launches = admissions x 28 (window
                  1024 on 21 layers, none on 7), none of the CUDA-core kernel,
-                 paged launches = decode steps x 28 (the group-8 build over
+                 paged launches = decode calls x 28 (the group-8 build over
                  21 rings and 7 rows), grouped expert launches = 2 x 28 x
                  model calls (the per-expert loop never runs);
   serve moe paged -- Kimi-K2 at its published width (d 7168, 64/8 heads,
@@ -221,7 +229,7 @@ the kernels' launch counts just before its run and reads them just after):
                  depth cut to 19 of 38 and 24 of 48 layers (whole periods of
                  their block patterns), 4 requests of 128 + 32 tokens on 2 slots through
                  the per-token recurrent prefill (paged launches: decode
-                 steps x Zamba2's shared-attention layers, none in xLSTM);
+                 calls x Zamba2's shared-attention layers, none in xLSTM);
                  the f32 oracle through B=1 decode steps;
   serve encdec -- Whisper-base at full size: the flash kernel checked at
                  the encoder's shape (non-causal, L 1500, hd 64), then stub
@@ -985,8 +993,9 @@ def phase_serve(cfg, params):
         if len(c.tokens) != GEN or not all(0 <= t < cfg.vocab for t in c.tokens):
             fail(f"request {c.rid}: {len(c.tokens)} tokens, or one out of the vocab")
     want = out["decode_steps"] * cfg.n_layers
-    if launches != want:
-        fail(f"paged_attention launches {launches} != decode steps "
+    if launches != want or out["decode_replays"]:
+        fail(f"paged_attention launches {launches} ({out['decode_replays']} decode replays, "
+             f"want none) != decode steps "
              f"{out['decode_steps']} x {cfg.n_layers} layers = {want}")
     ttft = sorted(c.ttft_s for c in comps.values())
     print(f"[serve] {cfg.name} bf16, {N_REQ} req x ({PROMPT} prompt + {GEN} gen), "
@@ -1089,6 +1098,43 @@ def phase_trace(cfg, params) -> None:
           flush=True)
 
 
+def _decode_calls(tag: str, out: dict) -> int:
+    """The decode steps of an end-aligned run on the card whose Python ran,
+    and so the decode's kernel wrapper calls; every step after the first
+    must be a replay, which calls none."""
+    steps, replays = out["decode_steps"], out["decode_replays"]
+    if replays != steps - 1:
+        fail(f"{tag}: {replays} of {steps} decode steps replayed from the graph; want all but "
+             f"the first")
+    return min(steps, 2)   # the eager warm-up and the capture
+
+
+def _eager_tokens(cfg, params, reqs, **kw) -> dict:
+    """The tokens of ``reqs`` served by an engine built as ``Scheduler(cfg,
+    params, **kw)`` but with the rule refusing the decode graph, so every
+    decode step runs eagerly: {rid: tokens}."""
+    from unittest import mock
+
+    from repro_torch.launch import scheduler
+    with mock.patch.object(scheduler, "decode_graphed", lambda *a: False):
+        sched = scheduler.Scheduler(cfg, params, **kw)
+    out = sched.run(reqs)
+    if out["decode_replays"]:
+        fail(f"the eager engine replayed {out['decode_replays']} decode steps")
+    return {r: c.tokens for r, c in out["completions"].items()}
+
+
+def _same_as_eager(tag: str, comps: dict, eager: dict) -> None:
+    """The graphed engine's tokens must be the eager engine's, every one."""
+    got = {r: c.tokens for r, c in comps.items()}
+    if got != eager:
+        bad = [r for r in eager if got.get(r) != eager[r]]
+        fail(f"{tag}: the graphed engine's tokens differ from the eager engine's in requests "
+             f"{bad}")
+    print(f"[{tag}] the graphed engine's tokens equal the eager engine's: "
+          f"{sum(map(len, got.values()))} tokens of {len(got)} requests", flush=True)
+
+
 # ---------------------------------------------------------------------------
 def phase_serve_aligned(cfg, params, paged_comps):
     """The end-aligned engine on the paged phase's request mix: one fused
@@ -1099,8 +1145,9 @@ def phase_serve_aligned(cfg, params, paged_comps):
     sched = Scheduler(cfg, params, slots=SLOTS, max_len=PROMPT + GEN, bucket=BUCKET)
     sched.run(make_requests(2, PROMPT, 2, cfg.vocab))          # warmup
     sched.reset()
-    torch.cuda.reset_peak_memory_stats()
     reqs = make_requests(N_REQ, PROMPT, GEN, cfg.vocab, stagger=STAGGER)
+    eager = _eager_tokens(cfg, params, reqs, slots=SLOTS, max_len=PROMPT + GEN, bucket=BUCKET)
+    torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.launches_wgmma = pa.launches = 0
     out = sched.run(reqs)
     launches, simt, paged = fa.launches_wgmma, fa.launches, pa.launches
@@ -1116,9 +1163,10 @@ def phase_serve_aligned(cfg, params, paged_comps):
         fail(f"flash_attention wgmma launches {launches} (CUDA-core kernel {simt}), fused "
              f"prefills {out['prefills']}; want {admissions} non-empty admissions x "
              f"{cfg.n_layers} layers = {want} wgmma launches and none of the other kernel")
-    want_paged = out["decode_steps"] * cfg.n_layers
+    calls = _decode_calls("serve aligned", out)
+    want_paged = calls * cfg.n_layers
     if paged != want_paged or not want_paged:
-        fail(f"paged_attention launches {paged}; want decode steps {out['decode_steps']} x "
+        fail(f"paged_attention launches {paged}; want decode calls {calls} x "
              f"{cfg.n_layers} layers = {want_paged}: the decode reads the rows through it")
     ttft = sorted(c.ttft_s for c in comps.values())
     same = sum(a == b for i in comps for a, b in zip(comps[i].tokens, paged_comps[i].tokens))
@@ -1126,10 +1174,12 @@ def phase_serve_aligned(cfg, params, paged_comps):
           f"{SLOTS} slots, max_len {PROMPT + GEN}, bucket {BUCKET}: {out['generated']} tokens "
           f"in {out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
-          f"decode steps, {out['prefills']} fused prefills, {launches} flash_attention "
+          f"decode steps ({out['decode_replays']} replays), {out['prefills']} fused "
+          f"prefills, {launches} flash_attention "
           f"(wgmma) launches, {paged} paged_attention launches; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"greedy tokens equal to the paged engine's at {same} of {N_REQ * GEN} positions "
           f"({same / (N_REQ * GEN):.3f}, not gated)", flush=True)
+    _same_as_eager("serve aligned", comps, eager)
     return comps, launches
 
 
@@ -2446,12 +2496,16 @@ def _check_grouped(tag: str, cfg, calls: int) -> int:
 
 def _serve_family(tag: str, cfg, params, reqs, warm_prompt: int, **kw):
     """A warmup run, then ``reqs`` through the scheduler with the kernels'
-    counts set to 0 just before and read just after.  Returns (the run's
+    counts set to 0 just before and read just after; an engine that
+    replays its decode from a graph must serve the tokens that an eager
+    engine, run before the counts are set to 0, serves.  Returns (the run's
     output, the launch counts)."""
-    from repro_torch.launch.scheduler import Scheduler, make_requests
+    from repro_torch.launch.scheduler import Scheduler, decode_graphed, make_requests
     sched = Scheduler(cfg, params, **kw)
     sched.run(make_requests(2, warm_prompt, 2, cfg.vocab))
     sched.reset()
+    graphed = decode_graphed(torch.device("cuda"), kw.get("paged", False), None)
+    eager = _eager_tokens(cfg, params, reqs, **kw) if graphed else None
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     out = sched.run(reqs)
@@ -2467,8 +2521,11 @@ def _serve_family(tag: str, cfg, params, reqs, warm_prompt: int, **kw):
           f"({len(reqs[0].prompt)} prompt + {gen} gen), {kw}: {out['generated']} tokens in "
           f"{out['wall_s']:.3f} s = {out['tok_s']:.1f} tok/s; TTFT p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; {out['ticks']} ticks, {out['decode_steps']} "
-          f"decode steps, {out['prefills']} prefills; launches {counts}; peak device memory "
+          f"decode steps ({out['decode_replays']} replays), {out['prefills']} prefills; "
+          f"launches {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if graphed:
+        _same_as_eager(tag, comps, eager)
     return out, counts
 
 
@@ -2616,13 +2673,14 @@ def phase_serve_moe_aligned() -> int:
     out, counts = _serve_family("serve moe aligned", cfg, params, reqs, 16, slots=SLOTS,
                                 max_len=PROMPT + GEN, bucket=BUCKET)
     admissions = sum(1 for r in reqs if len(r.prompt) > 0)
+    calls = _decode_calls("serve moe aligned", out)
     want = {"flash_wgmma": admissions * cfg.n_layers, "flash_simt": 0,
-            "paged": out["decode_steps"] * cfg.n_layers}
+            "paged": calls * cfg.n_layers}
     if counts != want or out["prefills"] != admissions or not want["paged"]:
         fail(f"serve moe aligned: launches {counts}, prefills {out['prefills']}; want {want} "
-             f"({admissions} non-empty admissions x {cfg.n_layers} layers, decode steps x "
+             f"({admissions} non-empty admissions x {cfg.n_layers} layers, decode calls x "
              f"{cfg.n_layers} layers)")
-    _check_grouped("serve moe aligned", cfg, out["decode_steps"] + out["prefills"])
+    _check_grouped("serve moe aligned", cfg, calls + out["prefills"])
     comp = out["completions"][0]
     _oracle_f32("oracle moe aligned", cfg, params, reqs[0].prompt, comp,
                 _aligned_path(params, PROMPT, GEN))
@@ -2650,13 +2708,14 @@ def phase_serve_mellum2_aligned() -> int:
             for r in make_requests(MELLUM2_REQ, n, GEN, cfg.vocab, stagger=STAGGER, seed=7 + i)]
     out, counts = _serve_family("serve mellum2 aligned", cfg, params, reqs, 16, slots=SLOTS,
                                 max_len=MELLUM2_MAX_LEN, bucket=BUCKET)
+    calls = _decode_calls("serve mellum2 aligned", out)
     want = {"flash_wgmma": len(reqs) * cfg.n_layers, "flash_simt": 0,
-            "paged": out["decode_steps"] * cfg.n_layers}
+            "paged": calls * cfg.n_layers}
     if counts != want or out["prefills"] != len(reqs) or not want["paged"]:
         fail(f"serve mellum2 aligned: launches {counts}, prefills {out['prefills']}; want "
-             f"{want} ({len(reqs)} admissions x {cfg.n_layers} layers, decode steps x "
+             f"{want} ({len(reqs)} admissions x {cfg.n_layers} layers, decode calls x "
              f"{cfg.n_layers} layers)")
-    grouped = _check_grouped("serve mellum2 aligned", cfg, out["decode_steps"] + out["prefills"])
+    grouped = _check_grouped("serve mellum2 aligned", cfg, calls + out["prefills"])
     del params
     return grouped
 
@@ -2715,7 +2774,8 @@ def phase_serve_recurrent(arch: str) -> None:
     reqs = make_requests(REC_REQ, REC_PROMPT, REC_GEN, cfg.vocab, stagger=STAGGER)
     out, counts = _serve_family(f"serve {tag}", cfg, params, reqs, 8, slots=REC_SLOTS,
                                 max_len=REC_PROMPT + REC_GEN)
-    want = {"flash_wgmma": 0, "flash_simt": 0, "paged": out["decode_steps"] * attn}
+    want = {"flash_wgmma": 0, "flash_simt": 0,
+            "paged": _decode_calls(f"serve {tag}", out) * attn}
     if out["prefills"] != REC_REQ or counts != want or (attn and not want["paged"]):
         fail(f"serve {arch}: {out['prefills']} per-token prefills, launches {counts}; want "
              f"{REC_REQ} and {want}")

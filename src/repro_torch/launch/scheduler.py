@@ -49,17 +49,37 @@ the same global logits on every rank and sampling draws from the same
 seeded generator, so every rank takes the same tokens; a rank whose tokens
 differ from the others' raises (``_agree``), rank 0 does not overrule it.
 
+One CUDA graph an engine (``decode_graphed``): on the card, an end-aligned
+engine of one process replays its decode step from a ``torch.cuda.CUDAGraph``
+over every slot, so a tick costs the host one launch and not the step's
+thousands of operations.  Its first decode step runs eagerly on a side
+stream (the tables made once a shape are made there, outside the graph's
+pool), the second is captured and replayed, every later one replayed; a
+capture waits for a step while no profile records, so that no span's sync
+falls inside it, and a step that cannot be captured raises.  ``_tok`` and
+``_pos`` are then numpy views of pinned host tensors, copied without
+blocking into the graph's static device inputs before each replay; the
+host writes them only once the previous step's tokens have reached it.  A
+cache leaf that the step returns anew (a recurrent state) is copied back
+into the engine's leaf inside the graph.  ``reset`` drops the graph with
+the cache it wrote.  The paged engine (its page writes sync), a rank (its
+collectives run on the host), the CPU, the recurrent admission's B=1 steps
+and the prefill stay eager.  A kernel wrapper's launch counter counts its
+calls, so a replay moves none.
+
 Spans (``runtime/trace.py``; recorded only while a ``torch.profiler``
 profile records): ``engine.tick`` an iteration of ``run``'s loop (rows
 decoding, admits, chunks); ``engine.admit`` a non-empty end-aligned or
 recurrent admission up to its first token on the host and its row insert,
 ``engine.chunk`` a paged prefill chunk (``tokens`` each); ``step.prefill``
 the prefill or chunk step's call; ``step.decode`` the decode step from its
-inputs' copy to its tokens on the host (rows); ``sync`` each wait for the
-device (``site``: ``h2d``, ``first_token``, ``decode``, ``agree``,
-``run_end``; ``models/`` adds ``paged_write`` and the MoE's).  The MoE
-layer adds ``moe.ffn`` (rows: tokens) and, inside it, ``moe.experts``
-around the grouped products (experts given a row, rows: assignments).
+inputs' copy to its tokens on the host (rows; ``graph`` 1 where it is a
+replay of the engine's graph, 0 where the step runs eagerly); ``sync`` each
+wait for the device (``site``: ``h2d``, ``first_token``, ``decode``,
+``agree``, ``run_end``; ``models/`` adds ``paged_write`` and the MoE's).
+The MoE layer adds ``moe.ffn`` (rows: tokens) and, inside it,
+``moe.experts`` around the grouped products (experts given a row, rows:
+assignments); a replay records neither.
 """
 from __future__ import annotations
 
@@ -77,7 +97,7 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel import steps as S
 from repro_torch.runtime import trace
 from repro_torch.serving import BlockPool
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
@@ -101,6 +121,12 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
         logits = torch.where(logits >= thresh, logits, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def decode_graphed(device: torch.device, paged: bool, ctx) -> bool:
+    """Whether an engine replays its decode step from one CUDA graph: on
+    the card, over end-aligned rows, in one process."""
+    return device.type == "cuda" and not paged and ctx is None
 
 
 @dataclass(frozen=True)
@@ -199,12 +225,16 @@ class Scheduler:
             self._step_logits = S.make_decode_step(cfg, return_logits=True, ctx=self._pctx)
         self._decode = S.make_decode_step(cfg, return_logits=self.sampling, paged=paged,
                                           ctx=self._dctx)
+        self._graphed = decode_graphed(self.device, paged, ctx)
         self.reset()
 
     def reset(self) -> None:
         """Fresh cache (and pool) and slot state and an empty submission
         queue; the sampling stream restarts from the seed for reproducible
-        runs."""
+        runs.  The decode graph goes with the cache it wrote; the next
+        decode step warms up anew."""
+        self._graph = self._graph_out = None
+        self._warm = False
         if self.paged:
             self.cache = T.init_paged_cache(self.cfg, self.pool.n_blocks, self.block,
                                             device=self.device)
@@ -213,8 +243,17 @@ class Scheduler:
         else:
             self.cache = T.init_cache(self.cfg, self.slots, self.max_len,
                                       device=self.device, ctx=self._dctx)
-        self._tok = np.zeros((self.slots,), np.int32)
-        self._pos = np.zeros((self.slots,), np.int32)
+        if self._graphed:
+            # the graph's inputs: pinned host tensors (``_tok``/``_pos`` are
+            # their numpy views) and the static device buffers they go to
+            pinned = [torch.zeros((self.slots,), dtype=torch.int32, pin_memory=True)
+                      for _ in range(2)]
+            self._tok, self._pos = (t.numpy() for t in pinned)
+            self._host_in = pinned
+            self._dev_in = [torch.zeros_like(t, device=self.device) for t in pinned]
+        else:
+            self._tok = np.zeros((self.slots,), np.int32)
+            self._pos = np.zeros((self.slots,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._queue: List[Request] = []
 
@@ -222,6 +261,68 @@ class Scheduler:
         # a copy from pageable host memory waits for the stream to drain
         with trace.span("sync", site="h2d"):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _decode_once(self):
+        """One decode step over every slot: (its tokens, or its logits when
+        sampling, on the device; whether the engine's graph served it)."""
+        if not self._graphed:
+            args = (self._to_device(self._tok), self.cache, self._to_device(self._pos))
+            if self.paged:
+                args += (self._to_device(self._tables),)
+            out, self.cache = self._decode(self.params, *args)
+            return out, False
+        for dev, host in zip(self._dev_in, self._host_in):
+            dev.copy_(host, non_blocking=True)
+        if self._graph is None:
+            if not self._warm or trace.recording_now():
+                return self._warm_up(), False
+            self._capture()
+        self._graph.replay()
+        return self._graph_out, True
+
+    def _graph_step(self, adopt: bool) -> torch.Tensor:
+        """The decode step on the graph's inputs.  The step gets the cache's
+        containers anew (it replaces entries in them).  With ``adopt`` (an
+        eager warm-up) the engine takes the leaves the step returns, so a
+        state it returns anew is held in the step's own dtype; else such a
+        leaf is copied into the engine's, whose addresses the graph reads
+        and writes."""
+        tok, pos = self._dev_in
+        out, cache = self._decode(self.params, tok, tree_map(lambda t: t, self.cache), pos)
+        if adopt:
+            self.cache = cache
+            return out
+        for mine, new in zip(leaves(self.cache), leaves(cache)):
+            if new is not mine:
+                if (new.dtype, new.shape) != (mine.dtype, mine.shape):
+                    raise RuntimeError(f"the step returned a cache leaf of {new.dtype} "
+                                       f"{tuple(new.shape)} for one of {mine.dtype} "
+                                       f"{tuple(mine.shape)}")
+                mine.copy_(new)
+        return out
+
+    def _warm_up(self) -> torch.Tensor:
+        """The step run eagerly on a side stream, as before a capture."""
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = self._graph_step(adopt=True)
+        here.wait_stream(side)
+        self._warm = True
+        return out
+
+    def _capture(self) -> None:
+        """Record the step in the engine's graph; nothing runs until the
+        replay that follows."""
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._graph_step(adopt=False)
+        except RuntimeError as e:
+            raise RuntimeError(f"the end-aligned decode step of {self.cfg.name} could not be "
+                               f"captured in a CUDA graph: {e}") from e
+        self._graph, self._graph_out = graph, out
 
     def _first_token(self, logits: torch.Tensor) -> int:
         if self.sampling:
@@ -402,8 +503,9 @@ class Scheduler:
         completion.  Tokens stream per request through ``on_token(rid,
         token)`` (one host sync per engine tick).  Returns completions, the
         tick, decode-step and prefill (non-empty end-aligned admission)
-        counts, wall time, throughput and, in paged mode, the block pool's
-        occupancy/fragmentation report."""
+        counts, the decode steps the engine's graph served
+        (``decode_replays``), wall time, throughput and, in paged mode, the
+        block pool's occupancy/fragmentation report."""
         for req in requests:
             self.submit(req)
         pending = deque(sorted(self._queue, key=lambda r: (r.arrival, r.rid)))
@@ -413,7 +515,7 @@ class Scheduler:
         done: Dict[int, Completion] = {}
         generated = 0
         tick = 0
-        decode_steps = prefills = 0
+        decode_steps = decode_replays = prefills = 0
         t0 = time.perf_counter()
 
         def finish(slot: int) -> None:
@@ -492,12 +594,9 @@ class Scheduler:
                         st = active[slot]
                         self.pool.ensure(st.req.rid, int(self._pos[slot]) + 1)
                         self._tables[slot] = self.pool.table(st.req.rid, self.n_pages)
-                with trace.span("step.decode", rows=len(decoding)):
-                    args = (self._to_device(self._tok), self.cache,
-                            self._to_device(self._pos))
-                    if self.paged:
-                        args += (self._to_device(self._tables),)
-                    out, self.cache = self._decode(self.params, *args)
+                with trace.span("step.decode", rows=len(decoding)) as sp:
+                    out, replayed = self._decode_once()
+                    sp.set(graph=int(replayed))
                     if self.sampling:
                         out = sample_tokens(out, self._gen, self.temperature, self.top_p)
                     out = self._agree(out)
@@ -505,6 +604,7 @@ class Scheduler:
                         nxt = out.cpu().numpy()   # host sync = the stream point
                 tick += 1
                 decode_steps += 1
+                decode_replays += replayed
                 for slot in decoding:
                     if slot not in active:
                         continue
@@ -522,6 +622,7 @@ class Scheduler:
             "generated": generated,
             "ticks": tick,
             "decode_steps": decode_steps,
+            "decode_replays": decode_replays,
             "prefills": prefills,
             "wall_s": wall,
             "tok_s": generated / wall if wall > 0 else float("inf"),

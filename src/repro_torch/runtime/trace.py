@@ -117,6 +117,11 @@ def span(name: str, **attrs):
     return _On(_rec, name, attrs)
 
 
+def recording_now() -> bool:
+    """Whether a profile records now, so that spans are kept."""
+    return _profiling()
+
+
 def recording() -> Optional[Recording]:
     """The current recording, or the last one; None before the first."""
     return _rec
